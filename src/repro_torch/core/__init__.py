@@ -26,6 +26,9 @@ from .reach import (bfs_reachable, bfs_unreachable, count_unreachable,
                     indegree, indegree_unreachable)
 from .backup import (DualIndexManager, batch_dual_search, dual_search,
                      rebuild_backup)
+from .maintenance import (IndexHealth, MaintenancePolicy, consolidate_deletes,
+                          index_health, rebuild_index, repair_unreachable,
+                          run_maintenance)
 
 __all__ = [
     "HNSWIndex", "HNSWParams", "empty_index", "from_arrays", "resize_index",
@@ -48,4 +51,6 @@ __all__ = [
     "bfs_reachable", "bfs_unreachable", "count_unreachable", "indegree",
     "indegree_unreachable",
     "DualIndexManager", "batch_dual_search", "dual_search", "rebuild_backup",
+    "IndexHealth", "MaintenancePolicy", "consolidate_deletes", "index_health",
+    "rebuild_index", "repair_unreachable", "run_maintenance",
 ]

@@ -141,15 +141,16 @@ def insert(params: HNSWParams, index: HNSWIndex, x: torch.Tensor,
 def build(params: HNSWParams, vectors, labels=None, seed: int = 0,
           capacity: int | None = None, execution: str = "auto", *,
           generator: torch.Generator | None = None, levels=None,
-          device="cuda") -> HNSWIndex:
+          draws=None, device="cuda") -> HNSWIndex:
     """Build an index over ``vectors[n, d]``; point ``i`` lands in slot ``i``.
 
     ``execution="wave"`` constructs in ``O(log n)`` geometrically-growing
     conflict-free waves (:func:`~repro_torch.core.batch_update.build_batch`);
     ``"sequential"`` inserts one point at a time; ``"auto"`` picks waves
     from :data:`WAVE_BUILD_MIN_N` points. Levels come from ``generator``
-    (default: a CPU generator seeded with ``seed``); the sequential builder
-    takes per-point ``levels`` instead, for parity with the reference.
+    (default: a CPU generator seeded with ``seed``); for parity with the
+    reference the sequential builder takes per-point ``levels`` instead,
+    and the wave builder ``build_batch``'s ``draws``.
     """
     if execution not in ("auto", "wave", "sequential"):
         raise ValueError(f"unknown build execution {execution!r}; expected "
@@ -161,7 +162,7 @@ def build(params: HNSWParams, vectors, labels=None, seed: int = 0,
         from .batch_update import build_batch
         return build_batch(params, vectors, labels, seed=seed,
                            capacity=capacity, generator=generator,
-                           device=device)
+                           draws=draws, device=device)
     dev = resolve_device(device)
     X = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
     d = X.shape[1]

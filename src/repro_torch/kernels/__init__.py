@@ -1,13 +1,20 @@
-"""Hand-written Hopper kernels of the port.
+"""Hand-written Hopper kernels of the port (CUDA C++, ``sm_90a``).
 
-  topk_dist — streaming masked distance + running top-k (CUDA C++,
-              ``sm_90a``), the exact scan tier behind ``exact_scan`` and
-              the brute-force ground truth.
+  l2dist    — the dense pairwise distance matrix ``[Q, N]`` in form
+              ``"l2"`` (squared L2, clamped at 0) or ``"ip"`` (``1 - <x, y>``),
+              f32 or bf16 inputs, f32 accumulation;
+  topk_dist — streaming masked distance + running top-k, the exact scan
+              tier behind ``exact_scan`` and the brute-force ground truth;
+  embed_bag — EmbeddingBag: a direct gather and f32 segment sum (``sum`` /
+              ``mean``, ``-1`` = padding).
 
-Each package ships the launcher (``<name>.py``, which builds the CUDA
-source at first use), ``ops.py`` (checks and dispatch: the kernel for CUDA
-tensors, the plain version for CPU tensors) and ``ref.py`` (plain PyTorch).
+Each package ships the launcher (``<name>.py``; ``_build.py`` compiles the
+CUDA source at first use), ``ops.py`` (checks and dispatch: the kernel for
+CUDA tensors, the plain version for CPU tensors, a ``launches`` count) and
+``ref.py`` (plain PyTorch).
 """
+from .embed_bag import embed_bag
+from .l2dist import l2dist
 from .topk_dist import topk_dist
 
-__all__ = ["topk_dist"]
+__all__ = ["l2dist", "topk_dist", "embed_bag"]

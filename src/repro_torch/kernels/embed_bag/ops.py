@@ -1,0 +1,51 @@
+"""The ``embed_bag`` wrapper: checks, empty shapes, and dispatch.
+
+A CUDA tensor launches the hand-written kernel (``embed_bag.py``) or
+raises; only a tensor that lies on the CPU takes the plain version
+(``ref.py``). The kernel has no backward, as the reference's has none;
+``embed_bag_ref`` is the differentiable version.
+"""
+from __future__ import annotations
+
+import torch
+
+from .embed_bag import embed_bag_cuda
+from .ref import MODES, embed_bag_ref
+
+
+def embed_bag(table: torch.Tensor, indices: torch.Tensor,
+              mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag: ``out[b] = reduce_l table[indices[b, l]]`` (-1 = pad).
+
+    ``table[V, D]`` f32 or bf16, ``indices[B, L]`` int; returns
+    ``f32[B, D]``. ``mode`` is ``"sum"`` or ``"mean"`` (divides by the
+    count of indices >= 0, at least 1).
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown embed_bag mode {mode!r}; expected one "
+                         f"of {MODES}")
+    if table.dim() != 2 or indices.dim() != 2:
+        raise ValueError(f"embed_bag takes table[V, D] and indices[B, L], "
+                         f"got {tuple(table.shape)} and "
+                         f"{tuple(indices.shape)}")
+    if indices.dtype.is_floating_point or indices.dtype == torch.bool:
+        raise TypeError(f"embed_bag indices must be integers, got "
+                        f"{indices.dtype}")
+    if table.device != indices.device:
+        raise ValueError(f"embed_bag inputs lie on several devices: "
+                         f"{table.device} and {indices.device}")
+    if table.device.type == "cpu":
+        return embed_bag_ref(table, indices, mode)
+    if table.device.type != "cuda":
+        raise ValueError(f"embed_bag runs on CUDA or CPU tensors, not "
+                         f"{table.device}")
+    (V, D), (B, L) = table.shape, indices.shape
+    if B == 0 or D == 0 or L == 0 or V == 0:     # nothing to launch
+        return torch.zeros((B, D), dtype=torch.float32, device=table.device)
+    out = embed_bag_cuda(table, indices, mode)
+    embed_bag.launches += 1
+    return out
+
+
+#: kernel launches so far (CUDA calls only; reset it to 0 to count a run)
+embed_bag.launches = 0

@@ -1,0 +1,57 @@
+"""Load and launch the CUDA ``l2dist`` kernel (``csrc/l2dist.cu``).
+
+The source is built at first use by the shared builder (``kernels._build``).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import Library, check_launch
+
+_FORMS = {"l2": 0, "ip": 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.l2dist_launch.argtypes = [p, p, i, i, i, i, i, p, p]
+    lib.l2dist_launch.restype = i
+
+
+LIBRARY = Library("l2dist",
+                  Path(__file__).resolve().parent / "csrc" / "l2dist.cu",
+                  _configure)
+
+
+def l2dist_cuda(X: torch.Tensor, Y: torch.Tensor,
+                metric: str) -> torch.Tensor:
+    """Launch the kernel on the current stream; returns ``f32[Q, N]``. The
+    caller (``ops``) has checked shapes and the metric form; this checks
+    what the kernel itself takes."""
+    if X.device.type != "cuda" or Y.device.type != "cuda":
+        raise ValueError(f"l2dist kernel takes CUDA tensors, got {X.device} "
+                         f"and {Y.device}")
+    if X.dtype != Y.dtype or X.dtype not in _DTYPES:
+        raise TypeError(f"l2dist kernel takes two float32 or two bfloat16 "
+                        f"inputs, got {X.dtype} and {Y.dtype}")
+    if torch.is_grad_enabled() and (X.requires_grad or Y.requires_grad):
+        raise RuntimeError("the l2dist CUDA kernel has no backward; call "
+                           "l2dist(..., use_ref=True) to differentiate")
+    X, Y = X.contiguous(), Y.contiguous()
+    nq, d = X.shape
+    N = Y.shape[0]
+    if max(nq, N, d) >= 2 ** 31:
+        raise ValueError(f"l2dist kernel takes fewer than 2^31 rows and "
+                         f"columns, got {nq} x {N} x {d}")
+    out = torch.empty((nq, N), dtype=torch.float32, device=X.device)
+    lib = LIBRARY.get()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = lib.l2dist_launch(X.data_ptr(), Y.data_ptr(), nq, N, d,
+                                _DTYPES[X.dtype], _FORMS[metric],
+                                out.data_ptr(), stream)
+    check_launch("l2dist", err)
+    return out

@@ -20,10 +20,31 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+PORTED = ["core/maintenance.py", "api/facade.py", "api/__init__.py",
+          "serving/metrics.py", "serving/snapshot.py", "serving/batcher.py",
+          "serving/update_queue.py", "serving/engine.py",
+          "serving/__init__.py", "launch/serve.py", "kernels/_build.py"]
+KERNELS = ["topk_dist", "l2dist", "embed_bag"]
+
+
 def test_port_files_found():
-    assert len(FILES) > 15
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "topk_dist" / "csrc"
-            / "topk_dist.cu").exists()
+    assert len(FILES) > 40
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in PORTED:
+        assert pkg / rel in FILES, rel
+    for name in KERNELS:
+        for rel in ("ref.py", f"{name}.py", "ops.py", "__init__.py"):
+            assert pkg / "kernels" / name / rel in FILES, (name, rel)
+        assert (pkg / "kernels" / name / "csrc" / f"{name}.cu").exists()
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cuda_sources_name_the_kernel_they_replace(name):
+    src = (ROOT / "src" / "repro_torch" / "kernels" / name / "csrc"
+           / f"{name}.cu").read_text()
+    head = src.split("#include")[0]
+    assert f"repro/kernels/{name}/{name}.py::" in head.replace("\n// ", "")
+    assert "bound" in head and "Design" in head
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

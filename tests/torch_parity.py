@@ -105,6 +105,50 @@ def record_wave_draws(monkeypatch):
     yield draws
 
 
+class Feed:
+    """Recorded reference draws, handed to the port one at a time in the
+    order the reference made them. ``apply_plan(draws=...)`` takes a feed
+    as it is (``iter`` of a feed is the feed); the other hooks call
+    ``next``. Running dry raises ``IndexError``: the port drew more."""
+
+    def __init__(self, items=None):
+        self.items = [] if items is None else items
+        self.pos = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.items[self.pos]
+        self.pos += 1
+        return item
+
+    def append(self, item):
+        self.items.append(item)
+
+    @property
+    def spent(self) -> bool:
+        """Whether the port consumed exactly what the reference drew."""
+        return self.pos == len(self.items)
+
+
+def recording_sequential_draws(apply_fn, params, variant, feed: Feed):
+    """Wrap a reference tape apply ``fn(index, ops, labels, X)`` of the
+    sequential executor so that it first records the tape's draws into
+    ``feed`` as ``(slots, levels)``, for the port's overrides."""
+    def fn(index, ops, labels, X):
+        _, slots, levels = ref_ops_one_by_one(params, index, ops, labels, X,
+                                              variant)
+        feed.append((slots, levels))
+        return apply_fn(index, ops, labels, X)
+    return fn
+
+
+def allocated_levels(ix) -> np.ndarray:
+    """Levels of the first ``count`` slots: a sequential build's draws."""
+    return np.asarray(ix.levels)[:int(ix.count)]
+
+
 def recall(found: np.ndarray, truth: np.ndarray) -> float:
     k = truth.shape[1]
     return float(np.mean([len(set(found[i].tolist()) & set(truth[i].tolist()))
