@@ -11,7 +11,9 @@ Phases, each of which exits nonzero on failure:
   2. each kernel against its plain PyTorch version on the card, with times,
      the bound and a library yardstick: ``topk_dist`` (l2 and ip, the
      reference's test shapes, a ~30% mask, fewer than k eligible rows, an
-     empty batch, and the exact tier's main-path shape 64 x N x 128),
+     empty batch, duplicate rows (ties), rows of norm ~1e4 (the l2 form's
+     cancellation), the exact tier's main-path shape 64 x N x 128, and the
+     1,000-query ground-truth call over it),
      ``l2dist`` (a serving batch against the index, 64 x N x 128, f32 and
      bf16, l2 and ip, plus the test shapes) and ``embed_bag`` (wide-deep's
      1,000,000 x 32 table, 4096 bags of 32 with ~10% padding, sum and
@@ -47,7 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                     # kernel vs plain version, relative and absolute
 PEAK_F32_FLOPS = 67e12         # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # H100 SXM, TF32 dense on the tensor cores
 PEAK_BF16_FLOPS = 989e12       # H100 SXM, bf16 dense on the tensor cores
+#: the fastest exact-f32 route: 3xTF32 (three TF32 products per product)
+PEAK_EXACT_F32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 K = 10
 REPAIR_PASSES = 10             # sweeps of repair_unreachable in phase 5
@@ -135,7 +140,9 @@ def kernel_phase(N_main):
     rng = np.random.default_rng(0)
     max_err = 0.0
 
-    def compare(Q, Y, k, metric, mask=None, what=""):
+    def compare(Q, Y, k, metric, mask=None, what="", track=True):
+        """Kernel against plain version; ``track`` adds the case to the
+        max abs error (of inputs with entries ~N(0, 1))."""
         nonlocal max_err
         dv, iv = topk_dist(Q, Y, k, metric=metric, mask=mask)
         torch.cuda.synchronize()
@@ -144,9 +151,9 @@ def kernel_phase(N_main):
         fin = torch.isfinite(dr)
         check(bool((torch.isfinite(dv) == fin).all())
               and bool((iv[~fin] == -1).all()), f"padding {what} {metric}")
-        if fin.any():
+        if fin.any() and track:
             max_err = max(max_err, float((dv[fin] - dr[fin]).abs().max()))
-        return dv, iv
+        return dv, iv, dr
 
     def rand(*shape):
         return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
@@ -161,13 +168,25 @@ def kernel_phase(N_main):
                 "30% masked")
         few = torch.zeros(500, dtype=torch.bool, device=dev)
         few[[5, 99, 250, 251, 499]] = True
-        dv, iv = compare(rand(4, 32), rand(500, 32), 16, metric, few,
-                         "5 eligible")
+        dv, iv, _ = compare(rand(4, 32), rand(500, 32), 16, metric, few,
+                            "5 eligible")
         check(bool((iv[:, 5:] == -1).all()) and bool(torch.isinf(
             dv[:, 5:]).all()), "(inf, -1) padding")
         d0, i0 = topk_dist(rand(0, 32), rand(500, 32), 8, metric=metric)
         check(d0.shape == (0, 8) and i0.shape == (0, 8), "empty batch")
-    log("kernel phase: small shapes agree with the plain version")
+        base = rand(300, 128)                 # every row four times: ties
+        dv, iv, _ = compare(base[:64] + 0.3 * rand(64, 128),
+                            torch.cat([base, base, base[:77], base]), 12,
+                            metric, what="duplicate rows")
+        ordered = (dv[:, :-1] < dv[:, 1:]) | ((dv[:, :-1] == dv[:, 1:])
+                                             & (iv[:, :-1] < iv[:, 1:]))
+        check(bool(ordered.all()), "order by (distance, id)")
+    # |q|^2 + |y|^2 ~ 2e8 cancelling 20-fold (tests/test_torch_cuda.py)
+    big = rand(4099, 128) * (1e4 / 128 ** 0.5)
+    dv, _, dr = compare(big[:65] + rand(65, 128) * (3e3 / 128 ** 0.5), big,
+                        K, "l2", what="norm 1e4", track=False)
+    log(f"kernel phase: small shapes agree with the plain version; rows of "
+        f"norm 1e4: max rel err {float(((dv - dr) / dr).abs().max()):.3g}")
 
     # the exact tier's main-path shape: a serving batch of 64 over N rows
     Q, Y = rand(64, 128), rand(N_main, 128)
@@ -185,18 +204,27 @@ def kernel_phase(N_main):
     nq, d = Q.shape
     bytes_ = 4 * (nq * d + N_main * d) + N_main + nq * K * 8
     ops = 2 * nq * N_main * d + 2 * (nq + N_main) * d + 3 * nq * N_main
-    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_EXACT_F32_FLOPS * 1e3
+    t_fma = ops / PEAK_F32_FLOPS * 1e3
+    # the ground truth's call: 1,000 queries over the same rows
+    Qg = rand(1000, 128)
+    compare(Qg, Y, K, "l2", what=f"1000x{N_main}x128")
+    truth_ms = cuda_ms(lambda: topk_dist(Qg, Y, K), 3)
     log(f"topk_dist 64x{N_main}x128 k={K} l2: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library (cdist+topk) {library_ms:.4f} ms, "
         f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
-        f"operations {t_ops:.4f}), max abs err {max_err:.3g}")
+        f"operations {t_ops:.4f} as 3xTF32; {t_fma:.4f} on the f32 FMA "
+        f"route), max abs err {max_err:.3g}; 1000 queries (the ground "
+        f"truth's call) {truth_ms:.4f} ms")
     return {"name": "topk_dist", "route": "cuda",
             "source": "src/repro_torch/kernels/topk_dist/csrc/topk_dist.cu",
             "replaces": "src/repro/kernels/topk_dist/topk_dist.py:99",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms}, {"fma_route_ms": t_fma,
+                                        "truth_1000_ms": truth_ms}
 
 
 def l2dist_phase(N_main):
@@ -227,12 +255,14 @@ def l2dist_phase(N_main):
 
     max_err = 0.0
 
-    def compare(out, X, Yy, metric, what):
+    def compare(out, X, Yy, metric, what, track=True):
         nonlocal max_err
         ref = l2dist_ref(X, Yy, metric=metric)
         check(torch.allclose(out, ref, rtol=TOL, atol=TOL),
               f"l2dist {what} {metric}")
-        max_err = max(max_err, float((out - ref).abs().max()))
+        if track:
+            max_err = max(max_err, float((out - ref).abs().max()))
+        return float(((out - ref).abs() / (1 + ref.abs())).max())
 
     for (metric, dt), out in outs.items():
         X, Yy = (Q, Y) if dt == "f32" else (Qb, Yb)
@@ -244,7 +274,12 @@ def l2dist_phase(N_main):
             for metric in ("l2", "ip"):
                 compare(l2dist(X, Yy, metric=metric), X, Yy, metric,
                         f"{q}x{n}x{d} {dtype}")
-    log("l2dist: every shape agrees with the plain version")
+    # |q|^2 + |y|^2 ~ 2e8 cancelling 20-fold (tests/test_torch_cuda.py)
+    big = rand(4099, 128) * (1e4 / 128 ** 0.5)
+    near = big[:65] + rand(65, 128) * (3e3 / 128 ** 0.5)
+    rel = compare(l2dist(near, big), near, big, "l2", "norm 1e4", track=False)
+    log(f"l2dist: every shape agrees with the plain version; rows of norm "
+        f"1e4: max rel err {rel:.3g}")
 
     def bound(nq, n, d, itemsize, peak_ops):
         bytes_ = itemsize * (nq + n) * d + 4 * nq * n
@@ -252,8 +287,9 @@ def l2dist_phase(N_main):
         t_b, t_o = bytes_ / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
         return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
-    res = {}
-    for dt, (X, Yy), itemsize, peak in (("f32", (Q, Y), 4, PEAK_F32_FLOPS),
+    res = {"f32_fma_route_ms": bound(64, N_main, 128, 4, PEAK_F32_FLOPS)[0]}
+    for dt, (X, Yy), itemsize, peak in (("f32", (Q, Y), 4,
+                                         PEAK_EXACT_F32_FLOPS),
                                         ("bf16", (Qb, Yb), 2,
                                          PEAK_BF16_FLOPS)):
         ms = cuda_ms(lambda: l2dist(X, Yy), 20)
@@ -275,12 +311,13 @@ def l2dist_phase(N_main):
         "plain_ms": cuda_ms(lambda: l2dist_ref(Qs, Ys), 50),
         "library_ms": cuda_ms(lambda: torch.cdist(
             Qs, Ys, compute_mode="use_mm_for_euclid_dist").square_(), 50),
-        "bound_ms": bound(64, 2048, 128, 4, PEAK_F32_FLOPS)[0]}
+        "bound_ms": bound(64, 2048, 128, 4, PEAK_EXACT_F32_FLOPS)[0]}
     log(f"l2dist library (cdist^2) {res['f32']['library_ms']:.4f} ms; ip: "
         f"kernel {res['f32_ip']['ms']:.4f} ms, library (addmm) "
         f"{res['f32_ip']['library_ms']:.4f} ms; 64x2048x128: "
         + json.dumps(res["bench_64x2048x128"]))
-    log(f"l2dist max abs err {max_err:.3g}")
+    log(f"l2dist max abs err {max_err:.3g}; f32 bound on the FMA route "
+        f"{res['f32_fma_route_ms']:.4f} ms")
     f32 = res["f32"]
     report = {"name": "l2dist", "route": "cuda",
               "source": "src/repro_torch/kernels/l2dist/csrc/l2dist.cu",
@@ -907,7 +944,7 @@ def main(argv=None) -> int:
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return r
 
-    report = timed("2_topk_dist", kernel_phase, args.n)
+    report, results["topk_dist"] = timed("2_topk_dist", kernel_phase, args.n)
     l2_report, results["l2dist"] = timed("2_l2dist", l2dist_phase, args.n)
     eb_report, results["embed_bag"] = timed("2_embed_bag", embed_bag_phase)
 

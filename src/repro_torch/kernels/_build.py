@@ -3,9 +3,10 @@
 Each kernel's source (``<name>/csrc/<name>.cu``) compiles for ``sm_90a``
 into a shared library, at first use, into ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), and is loaded with ``ctypes``.
-The library name carries a hash of the source, so an edited source is
-rebuilt. Nothing is compiled or loaded when a module is imported, so the
-package imports on a machine without ``nvcc``. :func:`build_all` runs one
+The library name carries a hash of the source and of the headers it
+includes (``_csrc/*.cuh``), so an edited source or header is rebuilt.
+Nothing is compiled or loaded when a module is imported, so the package
+imports on a machine without ``nvcc``. :func:`build_all` runs one
 ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations
@@ -21,7 +22,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: headers shared by the kernels' sources (included by relative path)
+HEADERS = tuple(sorted((Path(__file__).resolve().parent / "_csrc").glob(
+    "*.cuh")))
 ARCH = "arch=compute_90a,code=sm_90a"
 
 
@@ -43,9 +49,11 @@ class Library:
     """
 
     def __init__(self, name: str, src: Path,
-                 configure: Callable[[ctypes.CDLL], None]):
+                 configure: Callable[[ctypes.CDLL], None],
+                 headers: tuple[Path, ...] = ()):
         self.name = name
         self.src = src
+        self.headers = headers
         self.configure = configure
         self.lib = None
         self.build_log = ""
@@ -53,7 +61,10 @@ class Library:
 
     @property
     def so_path(self) -> Path:
-        digest = hashlib.sha256(self.src.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for f in (self.src, *self.headers):
+            h.update(f.read_bytes())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 
     def get(self) -> ctypes.CDLL:
@@ -88,6 +99,26 @@ def build_all(libraries) -> None:
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib.get) for lib in libraries]:
             f.result()
+
+
+def rows16(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The matrices as the contraction kernels take them: contiguous, rows
+    a multiple of 16 bytes long, 16-byte aligned. A matrix that is not is
+    copied with its rows zero-padded to the next multiple of 16 bytes
+    (zeros change no dot product and no norm); all come back equally wide.
+    """
+    per = 16 // tensors[0].element_size()
+    d = tensors[0].shape[1]
+    width = -(-d // per) * per
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        if width != d:
+            t = torch.nn.functional.pad(t, (0, width - d))
+        elif t.data_ptr() % 16:
+            t = t.clone()           # a fresh allocation is aligned
+        out.append(t)
+    return tuple(out)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_launch
+from .._build import HEADERS, Library, check_launch, rows16
 
 _FORMS = {"l2": 0, "ip": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -23,7 +23,7 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 LIBRARY = Library("l2dist",
                   Path(__file__).resolve().parent / "csrc" / "l2dist.cu",
-                  _configure)
+                  _configure, HEADERS)
 
 
 def l2dist_cuda(X: torch.Tensor, Y: torch.Tensor,
@@ -40,10 +40,10 @@ def l2dist_cuda(X: torch.Tensor, Y: torch.Tensor,
     if torch.is_grad_enabled() and (X.requires_grad or Y.requires_grad):
         raise RuntimeError("the l2dist CUDA kernel has no backward; call "
                            "l2dist(..., use_ref=True) to differentiate")
-    X, Y = X.contiguous(), Y.contiguous()
-    nq, d = X.shape
-    N = Y.shape[0]
-    if max(nq, N, d) >= 2 ** 31:
+    nq, N = X.shape[0], Y.shape[0]
+    X, Y = rows16(X, Y)
+    d = X.shape[1]
+    if max(nq, N, 4 * d) >= 2 ** 31 - 128 or (-(-N // 128)) * d >= 2 ** 31:
         raise ValueError(f"l2dist kernel takes fewer than 2^31 rows and "
                          f"columns, got {nq} x {N} x {d}")
     out = torch.empty((nq, N), dtype=torch.float32, device=X.device)

@@ -10,10 +10,11 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_launch
+from .._build import HEADERS, Library, check_launch, rows16
 
 _FORMS = {"l2": 0, "ip": 1}
-#: candidates per tile and queries per block (must match the source)
+#: candidates per tile and queries per block (``contract::BN, BQ`` in
+#: ``kernels/_csrc/contract.cuh``)
 _BN, _BQ = 128, 64
 MAX_K = 128
 
@@ -31,15 +32,17 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 LIBRARY = Library("topk_dist",
                   Path(__file__).resolve().parent / "csrc" / "topk_dist.cu",
-                  _configure)
+                  _configure, HEADERS)
 
 
 def split_plan(nq: int, N: int, device: torch.device) -> tuple[int, int]:
-    """``(tiles_per_split, splits)``: enough blocks for about four per SM."""
+    """``(tiles_per_split, splits)``: a persistent grid of about one block
+    per SM (the kernel's shared memory allows one), each block walking a
+    contiguous run of candidate tiles."""
     n_tiles = -(-N // _BN)
     q_tiles = -(-nq // _BQ)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(n_tiles, -(-4 * sms // q_tiles)))
+    splits = max(1, min(n_tiles, sms // q_tiles))
     tps = -(-n_tiles // splits)
     return tps, -(-n_tiles // tps)
 
@@ -56,13 +59,12 @@ def topk_dist_cuda(Q: torch.Tensor, Y: torch.Tensor, k: int, metric: str,
     if Q.dtype != torch.float32 or Y.dtype != torch.float32:
         raise TypeError(f"topk_dist kernel takes float32, got {Q.dtype} "
                         f"and {Y.dtype}")
-    if not (Q.is_contiguous() and Y.is_contiguous()):
-        raise ValueError("topk_dist kernel takes contiguous Q and Y")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"topk_dist kernel takes 1 <= k <= {MAX_K}, got {k}")
-    nq, d = Q.shape
-    N = Y.shape[0]
-    if max(nq, N, d) >= 2 ** 31 - _BN:
+    nq, N = Q.shape[0], Y.shape[0]
+    Q, Y = rows16(Q, Y)
+    d = Q.shape[1]
+    if max(nq, N, 4 * d) >= 2 ** 31 - _BN or (-(-N // _BN)) * d >= 2 ** 31:
         raise ValueError("topk_dist kernel takes fewer than 2^31 rows")
     m = None
     if mask is not None:

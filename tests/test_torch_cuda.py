@@ -73,6 +73,97 @@ def test_topk_dist_kernel_pads_and_counts(cuda):
     assert d0.shape == (0, 8) and i0.shape == (0, 8)
 
 
+def _rand(rng, *shape, device, scale=1.0):
+    return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32,
+                        device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 7, 100, 128, 960])
+@pytest.mark.parametrize("n", [1, 127, 129, 4099])
+def test_topk_dist_kernel_at_the_edges(cuda, d, n):
+    """The edges of the kernel's tiling: d across the 128-byte slices (and
+    rows padded to 16 bytes), N across the 128-row tiles, nq across the
+    64-query blocks, k up to 128 (the register-list flush past 32)."""
+    rng = np.random.default_rng(d * 10_000 + n)
+    Y = _rand(rng, n, d, device=cuda)
+    mask = torch.tensor(rng.random(n) > 0.3, device=cuda)
+    for nq in (1, 65, 1000):
+        Q = _rand(rng, nq, d, device=cuda)
+        for k, metric, m in ((1, "l2", None), (10, "ip", mask),
+                             (128, "l2", mask), (10, "l2", None)):
+            dv, iv = topk_dist(Q, Y, k, metric=metric, mask=m)
+            torch.cuda.synchronize()
+            dr, ir = topk_dist_ref(Q, Y, k, metric=metric, mask=m)
+            _check(dv, iv, dr, ir)
+            assert bool((iv[torch.isinf(dv)] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_topk_dist_kernel_all_masked_and_few_eligible(cuda, metric):
+    rng = np.random.default_rng(11)
+    Q, Y = _rand(rng, 70, 64, device=cuda), _rand(rng, 3000, 64, device=cuda)
+    none = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    dv, iv = topk_dist(Q, Y, 10, metric=metric, mask=none)
+    assert torch.isinf(dv).all() and (iv == -1).all()
+    few = none.clone()
+    few[[0, 1500, 2999]] = True
+    dv, iv = topk_dist(Q, Y, 10, metric=metric, mask=few)
+    dr, ir = topk_dist_ref(Q, Y, 10, metric=metric, mask=few)
+    _check(dv, iv, dr, ir)
+    assert (iv[:, 3:] == -1).all() and torch.isinf(dv[:, 3:]).all()
+    assert set(iv[0, :3].tolist()) == {0, 1500, 2999}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_topk_dist_kernel_ties_go_to_the_lowest_id(cuda, metric):
+    """Duplicate rows give exact ties; the kernel orders by (dist, id)."""
+    rng = np.random.default_rng(12)
+    base = _rand(rng, 300, 128, device=cuda)
+    Y = torch.cat([base, base, base[:77], base])        # rows 4 times over
+    Q = base[:64] + 0.3 * _rand(rng, 64, 128, device=cuda)
+    dv, iv = topk_dist(Q, Y, 12, metric=metric)
+    dr, ir = topk_dist_ref(Q, Y, 12, metric=metric)
+    _check(dv, iv, dr, ir)
+    d, i = dv.cpu().numpy(), iv.cpu().numpy()
+    for r in range(d.shape[0]):
+        assert all((d[r, a], i[r, a]) < (d[r, a + 1], i[r, a + 1])
+                   for a in range(d.shape[1] - 1))
+
+
+@pytest.mark.gpu
+def test_topk_dist_kernel_query_equal_to_a_row(cuda):
+    rng = np.random.default_rng(13)
+    Y = _rand(rng, 5000, 128, device=cuda)
+    rows = [3, 777, 4999]
+    dv, iv = topk_dist(Y[rows].clone(), Y, 4)
+    assert iv[:, 0].tolist() == rows
+    assert bool((dv[:, 0] >= 0).all()) and bool((dv[:, 0] <= 1e-4).all())
+    out = l2dist(Y[rows].clone(), Y)
+    assert bool((out >= 0).all())
+    assert bool((out[torch.arange(3), torch.tensor(rows)] <= 1e-4).all())
+
+
+@pytest.mark.gpu
+def test_kernels_where_the_l2_form_cancels(cuda):
+    """Rows of norm ~1e4, queries ~3e3 from them: |q|^2 + |y|^2 ~ 2e8
+    cancels 20-fold to distances ~1e7, where a few f32 ulps of the terms
+    (ulp 16) stay near 1e-5 of the result. (At 200-fold, distances ~1e6,
+    two f32 evaluations differ by more than 1e-4: the kernel and the plain
+    version do on the H100, whatever the accumulation order.)"""
+    rng = np.random.default_rng(14)
+    Y = _rand(rng, 4099, 128, device=cuda, scale=1e4 / np.sqrt(128))
+    Q = Y[:65] + _rand(rng, 65, 128, device=cuda, scale=3e3 / np.sqrt(128))
+    dv, iv = topk_dist(Q, Y, 10)
+    dr, ir = topk_dist_ref(Q, Y, 10)
+    _check(dv, iv, dr, ir)
+    np.testing.assert_allclose(l2dist(Q, Y).cpu().numpy(),
+                               l2dist_ref(Q, Y).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
