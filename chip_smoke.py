@@ -32,7 +32,14 @@ Phases, each of which exits nonzero on failure:
   6. the serving engine over phase 3's churned index: 3,072 single queries
      interleaved with 1% deletes + 1% replaces over 3 epochs, with a
      policy that consolidates, every ticket checked against exact ground
-     truth over its epoch's live set.
+     truth over its epoch's live set;
+  7. the sharded index and the sharded serving engine: 2^19 x 128 in 4
+     shards placed on this host's devices (all on one card when there is
+     one), recall of the merged answer and its equality with the stable
+     merge of the shards' own answers, then 3 epochs of 1,024 single
+     queries interleaved with 128 deletes, 128 replaces and 32 fresh
+     inserts routed to their owner shards (half of 256 / 256 / 64, to
+     keep the smoke's time; logged as a cut).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the reference.
@@ -890,6 +897,208 @@ def serving_phase(state, per_epoch=1024, seed=0):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded index and the sharded serving engine
+# ---------------------------------------------------------------------------
+
+def sharded_phase(N=1 << 19, nshards=4, epochs=3, per_epoch=1024,
+                  deletes=None, inserts=None, seed=0, dev="cuda"):
+    """``core.distributed`` and ``ServingEngine(mesh=...)`` at d = 128:
+    ``nshards`` shards of ``N / nshards`` points, each with 1,024 free
+    slots, placed on this host's devices; recall of the merged answer,
+    which must equal the stable merge of the shards' own answers; then
+    ``epochs`` of ``per_epoch`` single queries interleaved with
+    ``deletes`` deletes, as many replaces (new labels on the deleted
+    labels' owners) and ``inserts`` fresh inserts (default N / 4,096 and
+    N / 16,384, at least 1: 128 and 32 at 2^19, half of the 256 and 64 of
+    the full workload, which would take the phase to ~300 s on an H100)."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core.distributed import (build_sharded, shard_index,
+                                              sharded_batch_knn)
+    from repro_torch.data import clustered_vectors
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serving import ServingEngine
+
+    deletes = max(N // 4096, 1) if deletes is None else deletes
+    inserts = max(N // 16384, 1) if inserts is None else inserts
+    params = T.HNSWParams(M=16, M0=32, num_layers=4, ef_construction=64,
+                          ef_search=64)
+    S, per = nshards, N // nshards
+    cap = per + 1024
+    devices = make_local_mesh(dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    out = {"N": N, "nshards": S, "capacity_per_shard": cap,
+           "deletes_per_epoch": deletes, "replaces_per_epoch": deletes,
+           "inserts_per_epoch": inserts, "queries_per_epoch": per_epoch}
+    X = clustered_vectors(N, 128, seed=0)
+    live = Live(X)
+    sync()
+    t0 = time.perf_counter()
+    sharded = build_sharded(params, X, nshards=S, capacity=cap, seed=seed,
+                            devices=devices)
+    sharded = shard_index(sharded, devices)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    out["shard_devices"] = [str(d) for d in sharded.devices]
+    log(f"sharded: {S} shards of {per} points (capacity {cap}) built in "
+        f"{out['build_s']:.1f} s on {out['shard_devices']}")
+
+    def per_shard_counts(sh):
+        c = [T.count_unreachable(ix) for ix in sh.shards]
+        return ([int(a) for a, _ in c], [int(b) for _, b in c])
+
+    def check_ownership(sh, tag):
+        for s, ix in enumerate(sh.shards):
+            lab = ix.labels[(ix.levels >= 0) & ~ix.deleted]
+            check(bool((lab % S == s).all()),
+                  f"{tag}: shard {s} holds a label it does not own")
+
+    def1, bfs = per_shard_counts(sharded)
+    out["after_build"] = {"def1": def1, "bfs": bfs, "def1_sum": sum(def1),
+                          "bfs_sum": sum(bfs)}
+    check_ownership(sharded, "after build")
+    check(all(int(ix.count) == per for ix in sharded.shards),
+          "a shard's count after the build")
+
+    Q = torch.from_numpy(clustered_vectors(1000, 128, seed=0,
+                                           noise_seed=1)).to(sharded.device)
+    sync()
+    t0 = time.perf_counter()
+    lbl, dist = sharded_batch_knn(params, sharded, Q, K)
+    sync()
+    out["query_s"] = time.perf_counter() - t0
+    out["recall_after_build"] = recall(lbl.cpu().numpy(), live.truth(Q, K))
+    # the merge: the shards' own answers, shard-major, stable sort
+    own = [T.batch_knn(params, ix, Q.to(ix.device), K)
+           for ix in sharded.shards]
+    lg = torch.stack([o[0].to(Q.device) for o in own], 1).reshape(-1, S * K)
+    dg = torch.stack([o[2].to(Q.device) for o in own], 1).reshape(-1, S * K)
+    dg = torch.where(lg < 0, float("inf"), dg)
+    order = torch.sort(dg, dim=1, stable=True).indices[:, :K]
+    check(torch.equal(lg.gather(1, order), lbl)
+          and torch.equal(dg.gather(1, order), dist),
+          "the merged answer differs from the stable merge of the shards'")
+    log(f"sharded: recall@{K} {out['recall_after_build']:.4f} over 1000 "
+        f"queries in {out['query_s']:.2f} s (merge equal to the shards' own "
+        f"answers); unreachable def1 {def1} (sum {sum(def1)}), bfs {bfs} "
+        f"(sum {sum(bfs)})")
+
+    engine = ServingEngine(params, sharded, mesh=devices, k=K, max_batch=64,
+                           max_ops_per_drain=1024, track_unreachable=True)
+    rng = np.random.default_rng(seed + 31)
+    Qs = clustered_vectors(epochs * per_epoch, 128, seed=0, noise_seed=7)
+    tickets, live_at = [], {engine.epoch: live.live.copy()}
+    epochs_out = []
+    t_serve = time.perf_counter()
+    for e in range(epochs):
+        snap = engine.snapshot().index
+        counts = [int(ix.count) for ix in snap.shards]
+        free = [(ix.levels < 0).cpu() for ix in snap.shards]
+        base = len(live.live)                   # a multiple of S
+        dels = rng.choice(live.labels(), deletes, replace=False)
+        rep = base + S * np.arange(deletes) + dels % S   # owner = the delete's
+        ins = base + S * deletes + np.arange(inserts)
+        rows = np.zeros((S * deletes + inserts + (-inserts) % S, 128),
+                        np.float32)
+        rows[rep - base] = clustered_vectors(deletes, 128, seed=0,
+                                             noise_seed=500 + e)
+        rows[ins - base] = clustered_vectors(inserts, 128, seed=0,
+                                             noise_seed=600 + e)
+        live.add(rows)
+        live.live[base:] = False
+        # groups of 4 deletes, one fresh insert while their tombstones
+        # stand, then the 4 replaces that reuse them
+        ops = []
+        for g in range(0, deletes, 4):
+            ops += [("d", j) for j in range(g, min(g + 4, deletes))]
+            if g // 4 < inserts:
+                ops.append(("i", g // 4))
+            ops += [("r", j) for j in range(g, min(g + 4, deletes))]
+        ops += [("i", j) for j in range(-(-deletes // 4), inserts)]
+        qs = Qs[e * per_epoch:(e + 1) * per_epoch]
+        for i, q in enumerate(qs):
+            tickets.append(engine.search(q))
+            for kind, j in ops[i::per_epoch]:
+                if kind == "d":
+                    engine.delete(int(dels[j]))
+                elif kind == "r":
+                    engine.update(rows[rep[j] - base], int(rep[j]))
+                else:
+                    engine.insert(rows[ins[j] - base], int(ins[j]))
+        t0 = time.perf_counter()
+        pumps = engine.drain_all()
+        sync()
+        pump_s = time.perf_counter() - t0
+        live.live[dels] = False
+        live.live[rep] = True
+        live.live[ins] = True
+        live_at[engine.epoch] = live.live.copy()
+
+        new = engine.snapshot().index
+        check_ownership(new, f"epoch {e + 1}")
+        for s, ix in enumerate(new.shards):
+            n_ins = int(np.sum(ins % S == s))
+            n_del = int(np.sum(dels % S == s))
+            check(int(ix.count) == counts[s] + n_ins,
+                  f"epoch {e + 1}: shard {s} count {int(ix.count)}, expected "
+                  f"{counts[s]} + {n_ins} fresh inserts")
+            check(T.num_deleted(ix) == T.num_deleted(snap.shards[s]),
+                  f"epoch {e + 1}: shard {s} tombstones moved "
+                  f"({n_del} deletes, {n_del} replaces)")
+        for lab in ins:
+            ix = new.shards[lab % S]
+            slot = T.slot_of_label(ix, int(lab))
+            check(slot >= 0 and bool(free[lab % S][slot])
+                  and not bool(ix.deleted[slot]),
+                  f"epoch {e + 1}: insert {lab} did not take a free slot "
+                  f"on shard {lab % S}")
+        g = engine.stats()["gauges"]
+        epochs_out.append({"epoch": engine.epoch, "pumps": len(pumps),
+                           "pump_s": pump_s,
+                           "updates_applied": sum(p.updates_applied
+                                                  for p in pumps),
+                           "unreachable_def1": g["unreachable_indegree"],
+                           "unreachable_bfs": g["unreachable_bfs"]})
+        log(f"  epoch {engine.epoch}: {per_epoch} queries, {deletes} deletes "
+            f"+ {deletes} replaces + {inserts} inserts in {len(pumps)} "
+            f"pump(s), {pump_s:.1f} s; unreachable def1 "
+            f"{g['unreachable_indegree']:.0f} bfs {g['unreachable_bfs']:.0f}")
+    out["serve_s"] = time.perf_counter() - t_serve
+
+    check(all(tk.done for tk in tickets), "a ticket was never answered")
+    Qt = torch.from_numpy(Qs).to(sharded.device)
+    found = np.stack([tk.result()[0] for tk in tickets])
+    epochs_t = np.array([tk.epoch for tk in tickets])
+    hits = []
+    for ep in np.unique(epochs_t):
+        sel = np.nonzero(epochs_t == ep)[0]
+        truth = live.truth(Qt[sel], K, live=live_at[int(ep)])
+        hits.append(recall(found[sel], truth) * len(sel))
+        served = found[sel]
+        check(not np.isin(served[served >= 0],
+                          np.nonzero(~live_at[int(ep)])[0]).any(),
+              f"epoch {ep}: a deleted label was served")
+    out["served_recall"] = float(sum(hits) / len(tickets))
+    check(out["served_recall"] >= 0.9 * out["recall_after_build"],
+          f"served recall {out['served_recall']:.4f} < 0.9 x "
+          f"{out['recall_after_build']:.4f}")
+    stats = engine.stats()
+    n_ops = epochs * (2 * deletes + inserts)
+    out.update({"epochs": epochs_out, "tickets": len(tickets),
+                "stats": stats, "drain_ms_per_op": engine.metrics.histogram(
+                    "drain_latency_ms").sum / max(n_ops, 1)})
+    log(f"sharded serving: {len(tickets)} queries over epochs "
+        f"{sorted(int(x) for x in np.unique(epochs_t))}, served recall@{K} "
+        f"{out['served_recall']:.4f} (after build "
+        f"{out['recall_after_build']:.4f}), {out['serve_s']:.1f} s, "
+        f"{out['drain_ms_per_op']:.1f} ms a routed op")
+    log("sharded serving stats: " + json.dumps(stats))
+    log(engine.metrics.report())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -970,6 +1179,14 @@ def main(argv=None) -> int:
     check(results["6_serving"]["served_recall"] >= 0.9 * results[
         "main_path"]["rounds"][-1]["graph_recall"],
           "served recall < 0.9 x the graph recall after churn")
+    log("cut: phase 7 routes 128 deletes + 128 replaces + 32 inserts an "
+        "epoch instead of 256 + 256 + 64")
+    topk_dist.launches = Live.truth_launches = 0
+    results["7_sharded"] = timed("7_sharded", sharded_phase)
+    launches["7"] = topk_dist_launches()
+    log(f"phase 7 launched topk_dist {launches['7']} times in the port (the "
+        f"sharded engine pins the graph tier), {Live.truth_launches} more "
+        f"for the ground truth")
     report["launches"] = sum(launches.values())
     results["topk_dist_launches_by_phase"] = launches
     results["kernels"] = [report, l2_report, eb_report]

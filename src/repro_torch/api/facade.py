@@ -438,13 +438,16 @@ class VectorIndex:
         update queue; later facade mutations do not flow into it. It
         inherits this index's metric space, update strategy (unless
         ``variant=``), planner config (unless ``planner=``) and maintenance
-        policy (unless ``maintenance=``). ``mesh=`` (the sharded engine) is
-        not ported yet and raises.
+        policy (unless ``maintenance=``; never with ``mesh=``, where the
+        sharded engine takes no maintenance). A facade holds one graph, so
+        ``mesh=`` reaches the engine's ``TypeError``: serve a sharded index
+        with ``ServingEngine(params, build_sharded(...), mesh=...)``.
         """
         from ..serving import ServingEngine
         engine_kwargs.setdefault("variant", self.strategy)
         engine_kwargs.setdefault("planner", self.planner)
-        engine_kwargs.setdefault("maintenance", self.maintenance)
+        if engine_kwargs.get("mesh") is None:
+            engine_kwargs.setdefault("maintenance", self.maintenance)
         return ServingEngine(self.params, self._index.clone(),
                              **engine_kwargs)
 

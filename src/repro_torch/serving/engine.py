@@ -30,18 +30,26 @@ never a half-applied write batch. Writes land on the store's writable back
 buffer (a clone of the published index, see ``snapshot.py``), so a
 published snapshot never changes under a reader.
 
-The reference's sharded mode (``mesh=``) is not ported yet (ROADMAP module
-queue item 13) and raises ``NotImplementedError``.
+Sharded mode: pass ``mesh=`` (a list of devices, e.g.
+``launch.mesh.make_local_mesh()``) and a :class:`~repro_torch.core.
+distributed.ShardedIndex` from ``build_sharded``; the engine places the
+shards on the devices, pins the graph tier, and reroutes queries through
+``sharded_batch_knn`` (one stable merge per batch) and updates through
+``sharded_update`` (one op at a time, on its owner shard). Backup/dualSearch,
+the exact tier and maintenance are single-index only, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+from ..core.distributed import (ShardedIndex, shard_index,
+                                sharded_batch_knn, sharded_update)
 from ..core.index import HNSWIndex, HNSWParams, empty_index
 from ..core.maintenance import (MaintenancePolicy, index_health,
                                 run_maintenance)
 from ..core.reach import count_unreachable
+from ..core.update import OP_DELETE, OP_INSERT, OP_NOP
 
 from .batcher import MicroBatcher, QueryTicket
 from .metrics import MetricsRegistry
@@ -63,10 +71,12 @@ class PumpStats:
 
 
 class ServingEngine:
-    """The serving engine over one index (on the index's device)."""
+    """The serving engine over one index (on the index's device), or over a
+    :class:`ShardedIndex` placed on ``mesh``."""
 
-    def __init__(self, params: HNSWParams, index: HNSWIndex, *, k: int = 10,
-                 ef: int | None = None, variant: str = "mn_ru_gamma",
+    def __init__(self, params: HNSWParams, index: HNSWIndex | ShardedIndex,
+                 *, k: int = 10, ef: int | None = None,
+                 variant: str = "mn_ru_gamma",
                  max_batch: int = 64, max_ops_per_drain: int = 128,
                  tau: int = 0, backup_capacity: int = 0,
                  backup_params: HNSWParams | None = None, mesh=None,
@@ -74,10 +84,25 @@ class ServingEngine:
                  planner=None, maintenance: MaintenancePolicy | None = None,
                  maintain_every: int = 1, execution: str = "wave",
                  metrics: MetricsRegistry | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded serving engine (mesh=) is not ported yet: "
-                "ROADMAP module queue item 13 (core/distributed.py)")
+        sharded = mesh is not None
+        use_backup = tau > 0 and backup_capacity > 0
+        if sharded:
+            if not isinstance(index, ShardedIndex):
+                raise TypeError(
+                    "ServingEngine(mesh=...) serves a ShardedIndex (build "
+                    "one with core.distributed.build_sharded), got "
+                    f"{type(index).__name__}")
+            if mode == "exact":
+                raise ValueError("the exact scan tier is not supported in "
+                                 "sharded mode yet — use mode='auto' or "
+                                 "'graph' (auto pins the graph tier)")
+            if use_backup:
+                raise ValueError("backup/dualSearch is not supported in "
+                                 "sharded mode yet — drop tau/backup_capacity")
+            if maintenance is not None:
+                raise ValueError("maintenance policies are not supported in "
+                                 "sharded mode yet — drop maintenance=")
+            index = shard_index(index, mesh)
         if maintain_every < 1:
             raise ValueError("maintain_every must be >= 1")
         self.params = params
@@ -85,6 +110,7 @@ class ServingEngine:
         self.ef = ef
         self.variant = variant
         self.execution = execution
+        self.mesh = mesh
         self.track_unreachable = track_unreachable
         self.maintenance = maintenance
         # cadence is in PUMPS here; the policy's check_every stays an
@@ -97,18 +123,40 @@ class ServingEngine:
         self.dim = index.dim
 
         backup = None
-        if tau > 0 and backup_capacity > 0:
+        if use_backup:
             backup = empty_index(backup_params or params, backup_capacity,
                                  self.dim, 1, dtype=index.vectors.dtype,
                                  device=index.device)
         self.store = SnapshotStore(index, backup)
+        # sharded mode pins the graph tier, as the reference does
         self.batcher = MicroBatcher(
             params, k, ef, max_batch, metrics=self.metrics,
-            backup_params=backup_params, mode=mode, planner=planner)
+            search_fn=self._sharded_search if sharded else None,
+            backup_params=backup_params, mode="graph" if sharded else mode,
+            planner=planner)
         self.scheduler = UpdateScheduler(
             params, self.dim, variant, max_ops_per_drain, tau=tau,
             backup_params=backup_params, backup_capacity=backup_capacity,
-            metrics=self.metrics, execution=execution)
+            metrics=self.metrics, execution=execution,
+            apply_fn=self._sharded_apply if sharded else None)
+
+    # -- sharded routing ----------------------------------------------------
+    def _sharded_search(self, snapshot: EpochSnapshot, Q):
+        return sharded_batch_knn(self.params, snapshot.index, Q, self.k,
+                                 self.ef)
+
+    def _sharded_apply(self, index: ShardedIndex, ops, labels, X):
+        """Route each tape op to its owning shard, one op at a time (as the
+        reference does), with the scheduler's draws."""
+        for i, op in enumerate(ops.tolist()):
+            if op == OP_NOP:
+                continue
+            label = int(labels[i])
+            dl, nl = (label, -1) if op == OP_DELETE else (-1, label)
+            index = sharded_update(self.params, index, dl, X[i], nl,
+                                   self.variant, fresh_insert=op == OP_INSERT,
+                                   generator=self.scheduler.generator)
+        return index
 
     # -- client API ---------------------------------------------------------
     def search(self, q) -> QueryTicket:
@@ -177,7 +225,9 @@ class ServingEngine:
         self.metrics.histogram("pump_ms").observe(
             (time.perf_counter() - t0) * 1e3)
         if self.track_unreachable and out.epoch != snap.epoch:
-            if self._last_health is not None:
+            if self.mesh is not None:
+                u_ind, u_bfs = self._sharded_count_unreachable(out.index)
+            elif self._last_health is not None:
                 # the maintenance consult already swept this exact index
                 u_ind = int(self._last_health.unreachable_def1)
                 u_bfs = int(self._last_health.unreachable_bfs)
@@ -190,6 +240,14 @@ class ServingEngine:
                          updates_applied=applied, backup_rebuilt=rebuilt,
                          update_backlog=self.scheduler.backlog,
                          maintenance_ran=maintained, waves_per_pump=waves)
+
+    @staticmethod
+    def _sharded_count_unreachable(sharded: ShardedIndex) -> tuple[int, int]:
+        """Per-shard reachability sweeps summed into the global gauges (each
+        shard is its own sub-graph, and ``label % nshards`` ownership means
+        no point is counted twice)."""
+        counts = [count_unreachable(ix) for ix in sharded.shards]
+        return sum(c[0] for c in counts), sum(c[1] for c in counts)
 
     def _maybe_maintain(self) -> bool:
         """Policy-gated consolidation/repair on the back buffer.

@@ -23,7 +23,8 @@ def _imported_roots(path: Path) -> set[str]:
 PORTED = ["core/maintenance.py", "api/facade.py", "api/__init__.py",
           "serving/metrics.py", "serving/snapshot.py", "serving/batcher.py",
           "serving/update_queue.py", "serving/engine.py",
-          "serving/__init__.py", "launch/serve.py", "kernels/_build.py"]
+          "serving/__init__.py", "launch/serve.py", "kernels/_build.py",
+          "core/distributed.py", "launch/mesh.py"]
 KERNELS = ["topk_dist", "l2dist", "embed_bag"]
 
 

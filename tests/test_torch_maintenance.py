@@ -361,11 +361,26 @@ def test_engine_maintenance_swaps_epoch_and_invalidates_stats():
     assert not st_idle.maintenance_ran and not eng._dirty_since_consult
 
 
-def test_sharded_engine_is_not_ported_yet():
+def test_sharded_engine_is_not_ported_yet(monkeypatch):
+    """``vi.serve(mesh=...)``, once unported, now reaches the sharded
+    engine: the facade's maintenance policy is not inherited there (the
+    sharded engine takes none), and its single graph is refused with the
+    engine's ``TypeError``, which names ``build_sharded``."""
+    import repro_torch.serving as serving
     vi = _create(32, 8, maintenance=T.MaintenancePolicy())
     vi.add_items(clustered_vectors(32, 8, seed=21))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        vi.serve(k=3, mesh=object())
+    mesh = [torch.device("cpu")]
+    seen = {}
+    monkeypatch.setattr(serving, "ServingEngine",
+                        lambda params, index, **kw: seen.update(kw))
+    vi.serve(k=3, mesh=mesh)
+    assert seen["mesh"] is mesh and "maintenance" not in seen
+    assert seen["variant"] == vi.strategy
+    vi.serve(k=3)
+    assert seen["maintenance"] is vi.maintenance
+    monkeypatch.undo()
+    with pytest.raises(TypeError, match="build_sharded"):
+        vi.serve(k=3, mesh=mesh)
 
 
 def test_interleaved_update_consolidate_never_loses_live_labels():

@@ -1,10 +1,11 @@
 """The port's serving engine: the reference's serving tests
-(``tests/test_serving.py``, minus the sharded subprocess test — the sharded
-engine is not ported) mirrored on a graph the reference built; the
-reference's engine and the port's side by side on one stream of calls,
-the reference's draws fed to the port, equal pump for pump; the port-only
-guarantee that a published snapshot does not change while a drain updates
-the working copy in place; and the ``launch/serve.py`` driver on the CPU.
+(``tests/test_serving.py``, minus the sharded subprocess test, which
+``tests/test_torch_sharded_serving.py`` ports) mirrored on a graph the
+reference built; the reference's engine and the port's side by side on one
+stream of calls, the reference's draws fed to the port, equal pump for
+pump; the port-only guarantee that a published snapshot does not change
+while a drain updates the working copy in place; and the
+``launch/serve.py`` command line on the CPU.
 """
 import dataclasses
 import json
@@ -432,10 +433,30 @@ def test_engine_tau_backup_rebuild_in_maintenance_cycle(port, small_data):
     assert t.done and t.epoch == stats.epoch
 
 
-def test_sharded_engine_raises_not_implemented(port):
+def test_sharded_engine_raises_not_implemented(port, small_data):
+    """The sharded engine, once unported, now serves a ``ShardedIndex``:
+    the same answers as ``sharded_batch_knn``, updates routed to the owner
+    shard; a plain index with ``mesh=`` raises ``TypeError``."""
+    from repro_torch.core.distributed import build_sharded, sharded_batch_knn
     params, index = port
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingEngine(params, index, mesh=object())
+    mesh = [torch.device("cpu")]
+    with pytest.raises(TypeError, match="build_sharded"):
+        ServingEngine(params, index, mesh=mesh)
+    sharded = build_sharded(params, small_data[:200], nshards=2, capacity=104,
+                            devices=mesh)
+    engine = ServingEngine(params, sharded, k=5, mesh=mesh)
+    t = engine.search(small_data[10])
+    engine.delete(10)
+    engine.insert(small_data[10], 301)          # owner: shard 1
+    engine.pump()
+    want, _ = sharded_batch_knn(params, sharded, torch.from_numpy(
+        small_data[10][None]), 5)
+    np.testing.assert_array_equal(t.result()[0], want[0].numpy())
+    t = engine.search(small_data[10])
+    engine.pump()
+    assert int(t.result()[0][0]) == 301 and 10 not in t.result()[0]
+    assert int(engine.snapshot().index.shards[1].count) == 101
+    assert int(sharded.shards[1].count) == 100   # the published one kept
 
 
 def test_serve_cli_on_the_cpu(tmp_path):

@@ -13,6 +13,7 @@ import numpy as np
 
 import repro.core.batch_update as jbu
 from repro.core import HNSWParams as JParams
+from repro.core.index import HNSWIndex as JIndex
 from repro.core.index import sample_level as j_sample_level
 from repro.core.index import sample_levels as j_sample_levels
 from repro.core.hnsw import insert_jit
@@ -75,6 +76,33 @@ def ref_ops_one_by_one(params, ix, ops, labels, X, variant):
         slots.append(slot)
         levels.append(lvl)
     return ix, slots, levels
+
+
+def ref_shard(arrays: dict, s: int) -> JIndex:
+    """Shard ``s`` of a stacked layout (leading shard axis) as a reference
+    index."""
+    return JIndex(**{f: jnp.asarray(arrays[f][s]) for f in FIELDS})
+
+
+def ref_route(params, shards, del_label, x, new_label, variant, fresh):
+    """What the reference's ``sharded_update`` composes, applied to the
+    owner shards' slices (``shards``: a list of reference indexes, updated
+    in the list): ``mark_delete`` on the owner of ``del_label``, then
+    ``replaced_update`` (or, ``fresh``, ``first_free_slot`` + ``insert``)
+    on the owner of ``new_label``; a negative label skips its half.
+    Returns the new half's ``(slot, level)`` draws."""
+    S = len(shards)
+    slot = level = None
+    if del_label >= 0:
+        o = del_label % S
+        shards[o] = mark_delete_jit(shards[o], jnp.int32(del_label))
+    if new_label >= 0:
+        o = new_label % S
+        shards[o], slots, levels = ref_ops_one_by_one(
+            params, shards[o], [OP_INSERT if fresh else OP_REPLACE],
+            [new_label], np.asarray(x)[None], variant)
+        slot, level = slots[0], levels[0]
+    return slot, level
 
 
 @contextlib.contextmanager
