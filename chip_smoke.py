@@ -17,8 +17,9 @@ Phases, each of which exits nonzero on failure:
      ``l2dist`` (a serving batch against the index, 64 x N x 128, f32 and
      bf16, l2 and ip, plus the test shapes) and ``embed_bag`` (wide-deep's
      1,000,000 x 32 table, 4096 bags of 32 with ~10% padding, sum and
-     mean, plus the test shapes); each wrapper is first driven through its
-     public entry point at those shapes, and its launches counted;
+     mean, plus the test shapes, and phase 8's 262,144 bags of 32, whose
+     times the kernel report gives); each wrapper is first driven through
+     its public entry point at those shapes, and its launches counted;
   3. the main path at the paper's SIFT1M shape: wave build, 5 rounds of 1%
      MN-RU-gamma churn, queries (graph and exact tier) with recall against
      the kernel's exact ground truth, unreachable counts, then a backup
@@ -39,7 +40,19 @@ Phases, each of which exits nonzero on failure:
      merge of the shards' own answers, then 3 epochs of 1,024 single
      queries interleaved with 128 deletes, 128 replaces and 32 fresh
      inserts routed to their owner shards (half of 256 / 256 / 64, to
-     keep the smoke's time; logged as a cut).
+     keep the smoke's time; logged as a cut);
+  8. the embedding models that feed the index, at their published
+     configs: stablelm-1.6b (bf16, random weights from seed 0) embeds
+     16,384 documents of 128 tokens into a cosine ``VectorIndex``, 5% are
+     edited (re-embedded, markDelete + replace), 1,024 queries run in the
+     graph and the exact tier (``topk_dist``), two served epochs of 512
+     queries with 1% more edits between them, and ``prefill`` + 16
+     ``decode_step``s are held to ``forward``; then wide-deep (its bag on
+     ``embed_bag``, at 512 and 262,144 rows, held against the plain bag),
+     AutoInt and DIEN at 512 rows, and SASRec's retrieval over its
+     1,000,448 padded items (held to a stable sort) and over the first
+     131,072 items in an ``ip`` ``VectorIndex`` with 1% delisted and as
+     many new items listed (logged as a cut).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the reference.
@@ -337,7 +350,9 @@ def l2dist_phase(N_main):
 
 def embed_bag_phase(V=1_000_000, D=32, B=4096, L=32, pad=0.1):
     """``embed_bag`` through its entry point at wide-deep's table and bag
-    shapes, then against its plain version."""
+    shapes, then against its plain version; timed at ``B`` bags and at
+    phase 8's serve_bulk bags (262,144 of 32, ~30% padding), whose numbers
+    go to the kernel report."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -386,38 +401,60 @@ def embed_bag_phase(V=1_000_000, D=32, B=4096, L=32, pad=0.1):
                 compare(out, t, ix, mode, f"{v}x{d} bags {b}x{l}")
     log("embed_bag: every shape agrees with the plain version")
 
-    valid = idx[idx >= 0]
-    rows = int(torch.unique(valid).numel())
-    bytes_ = rows * D * 4 + B * L * 4 + B * D * 4
-    ops = int(valid.numel()) * D
-    t_b, t_o = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
-    ms = cuda_ms(lambda: embed_bag(table, idx, "sum"), 50)
-    ms_mean = cuda_ms(lambda: embed_bag(table, idx, "mean"), 50)
-    ms_bf16 = cuda_ms(lambda: embed_bag(tb16, idx, "sum"), 50)
-    plain_ms = cuda_ms(lambda: embed_bag_ref(table, idx, "sum"), 10)
-    lib_idx = idx.clamp_min(0).long()
-    weights = (idx >= 0).float()
-    library_ms = cuda_ms(lambda: F.embedding_bag(
-        lib_idx, table, mode="sum", per_sample_weights=weights), 50)
-    check(torch.allclose(F.embedding_bag(lib_idx, table, mode="sum",
-                                         per_sample_weights=weights),
-                         outs[("sum", "f32")], rtol=TOL, atol=TOL),
-          "embed_bag library yardstick computes another function")
-    log(f"embed_bag {V}x{D}, {B} bags of {L} ({int(valid.numel())} valid, "
-        f"{rows} distinct rows): kernel sum {ms:.4f} ms, mean "
-        f"{ms_mean:.4f} ms, bf16 sum {ms_bf16:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library (F.embedding_bag) {library_ms:.4f} ms, bound "
-        f"{max(t_b, t_o):.4f} ms (bytes {t_b:.4f}, operations {t_o:.4f}), "
-        f"max abs err {max_err:.3g}")
+    def measure(ix, reps):
+        """Kernel, plain and library times of a sum over ``table``, and the
+        bound: each distinct row read once, the ids, the output."""
+        nb, nl = ix.shape
+        valid = ix[ix >= 0]
+        rows = int(torch.unique(valid).numel())
+        bytes_ = rows * D * 4 + nb * nl * 4 + nb * D * 4
+        ops = int(valid.numel()) * D
+        t_b, t_o = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+        lib_idx, weights = ix.clamp_min(0).long(), (ix >= 0).float()
+        lib = F.embedding_bag(lib_idx, table, mode="sum",
+                              per_sample_weights=weights)
+        check(torch.allclose(lib, embed_bag_ref(table, ix), rtol=TOL,
+                             atol=TOL),
+              "embed_bag library yardstick computes another function")
+        return {"bags": nb, "valid": int(valid.numel()), "distinct_rows": rows,
+                "ms": cuda_ms(lambda: embed_bag(table, ix, "sum"), reps),
+                "plain_ms": cuda_ms(lambda: embed_bag_ref(table, ix, "sum"),
+                                    max(reps // 5, 2)),
+                "library_ms": cuda_ms(lambda: F.embedding_bag(
+                    lib_idx, table, mode="sum", per_sample_weights=weights),
+                    reps),
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b > t_o else "operations",
+                "gather_ms": int(valid.numel()) * D * 4 / PEAK_BYTES * 1e3}
+
+    small = measure(idx, 50)
+    small["mean_ms"] = cuda_ms(lambda: embed_bag(table, idx, "mean"), 50)
+    small["bf16_sum_ms"] = cuda_ms(lambda: embed_bag(tb16, idx, "sum"), 50)
+    # the main path's shape: wide-deep's serve_bulk bags (phase 8's ids)
+    from repro_torch.configs import get_config
+    from repro_torch.data import recsys_batch
+    bulk_idx = torch.from_numpy(recsys_batch(get_config("wide_deep"), 262_144,
+                                             seed=1)["bag_ids"]).to(dev)
+    compare(embed_bag(table, bulk_idx, "sum"), table, bulk_idx, "sum",
+            f"{V}x{D} bags {tuple(bulk_idx.shape)} (serve_bulk)")
+    bulk = measure(bulk_idx, 20)
+    for tag, m in ((f"{B} bags of {L}", small), ("serve_bulk, 262144 bags of "
+                                                  "32", bulk)):
+        log(f"embed_bag {V}x{D}, {tag} ({m['valid']} valid, "
+            f"{m['distinct_rows']} distinct rows): kernel sum {m['ms']:.4f} "
+            f"ms, plain {m['plain_ms']:.4f} ms, library (F.embedding_bag) "
+            f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}; every valid row gathered once: "
+            f"{m['gather_ms']:.4f} ms)")
+    log(f"embed_bag {B} bags: mean {small['mean_ms']:.4f} ms, bf16 sum "
+        f"{small['bf16_sum_ms']:.4f} ms; max abs err {max_err:.3g}")
     report = {"name": "embed_bag", "route": "cuda",
               "source": "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
               "replaces": "src/repro/kernels/embed_bag/embed_bag.py:45",
-              "launches": launches, "max_abs_err": max_err, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
-              "bound_by": "bytes" if t_b > t_o else "operations",
-              "library_ms": library_ms}
-    return report, {"mean_ms": ms_mean, "bf16_sum_ms": ms_bf16,
-                    "valid": int(valid.numel()), "distinct_rows": rows}
+              "launches": launches, "max_abs_err": max_err,
+              **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+    return report, {"bags_4096": small, "serve_bulk": bulk}
 
 
 # ---------------------------------------------------------------------------
@@ -1099,6 +1136,436 @@ def sharded_phase(N=1 << 19, nshards=4, epochs=3, per_epoch=1024,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the embedding models that feed the index
+# ---------------------------------------------------------------------------
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def embed_docs(cfg, params, tokens, batch, dev):
+    """Mean-pooled final hidden state (f32) of each row of ``tokens``, in
+    batches of ``batch``; a host thread (``PrefetchPipeline``) stages the
+    next batch in pinned memory while the card runs this one."""
+    import itertools
+    import torch
+    from repro_torch.data import PrefetchPipeline, SyntheticStream
+    from repro_torch.models import transformer
+
+    n = len(tokens)
+    pin = torch.device(dev).type == "cuda"
+
+    def stage(step):
+        t = torch.from_numpy(tokens[step * batch:(step + 1) * batch])
+        return t.pin_memory() if pin else t
+    steps = -(-n // batch)
+    out = torch.empty((n, cfg.d_model), dtype=torch.float32, device=dev)
+    pipe = PrefetchPipeline(itertools.islice(SyntheticStream(stage), steps))
+    with torch.inference_mode():
+        for step, t in enumerate(pipe):
+            hidden, _ = transformer.forward_hidden(
+                cfg, params, t.to(dev, non_blocking=True))
+            out[step * batch:step * batch + len(t)] = hidden.float().mean(1)
+    return out
+
+
+def rag_phase(cfg, n_docs=16384, edit_share=0.05, n_queries=1024,
+              per_epoch=512, serve_share=0.01, batch=64, seed=0,
+              dev="cuda"):
+    """The RAG scenario (``examples/rag_serving.py``,
+    ``examples/streaming_rag.py``) at ``cfg``'s width and depth: embed a
+    corpus with the LM, index it in a cosine ``VectorIndex``, edit
+    ``edit_share`` of it (re-embed, markDelete, replace under new labels),
+    query both tiers, serve two epochs with ``serve_share`` more edits
+    queued between them, and check ``prefill`` + 16 ``decode_step``s
+    against ``forward``."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.metrics import normalize_rows
+    from repro_torch.data import lm_token_batch
+    from repro_torch.kernels.topk_dist import topk_dist_ref
+    from repro_torch.models import transformer
+
+    out = {"arch": cfg.name, "n_docs": n_docs}
+    t = {}
+
+    def step(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(dev)
+        t[name] = time.perf_counter() - t0
+        return r
+
+    params = step("init", lambda: transformer.init_params(cfg, seed=seed,
+                                                          device=dev))
+    seq = 127                                   # 128 tokens a document
+    docs = lm_token_batch(cfg.vocab_size, n_docs, seq, seed=0)
+    corpus = step("embed", lambda: embed_docs(cfg, params, docs, batch, dev))
+    out["embed_tokens_per_s"] = docs.size / t["embed"]
+    check(tuple(corpus.shape) == (n_docs, cfg.d_model)
+          and bool(torch.isfinite(corpus).all()), "corpus embeddings")
+    corpus = corpus.cpu().numpy()
+
+    vi = api.create(space="cosine", dim=cfg.d_model, capacity=2 * n_docs,
+                    M=16, ef_construction=64, num_layers=4, ef_search=64,
+                    strategy="mn_ru_gamma", seed=seed, device=dev)
+    step("build", lambda: vi.add_items(corpus))
+    check(vi.count == n_docs, "RAG build count")
+    out["def1_after_build"] = vi.health().asdict()["unreachable_def1"]
+
+    n_edit = int(edit_share * n_docs)
+    edited = lm_token_batch(cfg.vocab_size, n_edit, seq, seed=7)
+    new_emb = embed_docs(cfg, params, edited, batch, dev).cpu().numpy()
+    new_labels = np.arange(n_docs, n_docs + n_edit)
+
+    def edit():
+        vi.mark_deleted(np.arange(n_edit))
+        vi.replace_items(new_emb, new_labels)
+    step("edit", edit)
+    check(vi.count == n_docs, "RAG live count after the edits")
+    out["def1_after_edits"] = vi.health().asdict()["unreachable_def1"]
+    live = np.ones(n_docs + n_edit, bool)
+    live[:n_edit] = False
+    vectors = normalize_rows(np.concatenate([corpus, new_emb]))
+    book = Live(vectors)                        # unit rows: l2 order = cosine
+    book.live = live.copy()
+
+    qtok = lm_token_batch(cfg.vocab_size, n_queries, seq, seed=9)
+    q_emb = embed_docs(cfg, params, qtok, batch, dev).cpu().numpy()
+    Qn = torch.from_numpy(normalize_rows(q_emb)).to(dev)
+    launches0 = topk_dist_launches()
+    g_lab, _ = step("query_graph", lambda: vi.knn_query(q_emb, k=K,
+                                                        mode="graph"))
+    e_lab, e_d = step("query_exact", lambda: vi.knn_query(q_emb, k=K,
+                                                          mode="exact"))
+    out["exact_launches"] = topk_dist_launches() - launches0
+    ix = vi.index
+    eligible = (ix.levels >= 0) & ~ix.deleted
+    rd, ri = topk_dist_ref(Qn, ix.vectors, K, metric="ip", mask=eligible)
+    truth = ix.labels[ri.long()].cpu().numpy()
+    out["exact_recall"] = exact_recall(e_lab, e_d, truth, rd.cpu().numpy())
+    out["graph_recall"] = recall(g_lab, truth)
+    check(out["exact_recall"] == 1.0,
+          f"RAG exact-tier recall@{K} {out['exact_recall']}")
+    self_lab, _ = vi.knn_query(new_emb, k=1)
+    out["edited_self_1nn"] = float(np.mean(self_lab[:, 0] == new_labels))
+    check(out["edited_self_1nn"] == 1.0,
+          f"only {out['edited_self_1nn']:.4f} of the edited documents are "
+          f"their own 1-NN")
+    check(not np.isin(g_lab, np.arange(n_edit)).any(),
+          "a deleted document was returned")
+
+    # serving: two epochs of single queries, edits queued between them
+    rng = np.random.default_rng(seed + 41)
+    n_serve = max(int(serve_share * n_docs), 1)
+    dels = rng.choice(book.labels(), n_serve, replace=False)
+    stok = lm_token_batch(cfg.vocab_size, n_serve, seq, seed=13)
+    semb = embed_docs(cfg, params, stok, batch, dev).cpu().numpy()
+    slabels = np.arange(len(live), len(live) + n_serve)
+    engine = vi.serve(k=K, max_ops_per_drain=4 * n_serve,
+                      track_unreachable=True)
+    tickets, live_at = [], {engine.epoch: book.live.copy()}
+    t0 = time.perf_counter()
+    for e in range(2):
+        for q in q_emb[e * per_epoch:(e + 1) * per_epoch]:
+            tickets.append(engine.search(q))
+        if e == 0:
+            for lab, x, new in zip(dels, semb, slabels):
+                engine.delete(int(lab))
+                engine.update(x, int(new))
+        engine.drain_all()
+        if e == 0:
+            book.live[dels] = False
+            book.add(normalize_rows(semb))
+        live_at[engine.epoch] = book.live.copy()
+    _sync(dev)
+    t["serve"] = time.perf_counter() - t0
+    check(all(tk.done for tk in tickets), "a RAG ticket was never answered")
+    found = np.stack([tk.result()[0] for tk in tickets])
+    epochs = np.array([tk.epoch for tk in tickets])
+    Qs = torch.from_numpy(normalize_rows(q_emb[:len(tickets)])).to(dev)
+    hits = 0.0
+    for ep in np.unique(epochs):
+        sel = np.nonzero(epochs == ep)[0]
+        hits += recall(found[sel], book.truth(Qs[sel], K,
+                                              live=live_at[int(ep)])) * len(sel)
+        check(not np.isin(found[sel], np.nonzero(~live_at[int(ep)])[0]).any(),
+              f"RAG epoch {ep}: a deleted document was served")
+    out["served_recall"] = hits / len(tickets)
+    out["served_epochs"] = sorted(int(e) for e in np.unique(epochs))
+    check(out["served_recall"] >= 0.9 * out["graph_recall"],
+          f"RAG served recall {out['served_recall']:.4f} < 0.9 x "
+          f"{out['graph_recall']:.4f}")
+    out["def1_after_serving"] = int(engine.stats()["gauges"].get(
+        "unreachable_indegree", -1))
+
+    out["decode"] = decode_check(cfg, params, dev)
+    out["seconds"] = t
+    log(f"RAG ({cfg.name}, {n_docs} docs of {seq + 1} tokens): embed "
+        f"{t['embed']:.1f} s ({out['embed_tokens_per_s']:.0f} tokens/s), "
+        f"build {t['build']:.1f} s, {n_edit} edits {t['edit']:.2f} s; "
+        f"Definition 1 {out['def1_after_build']} -> "
+        f"{out['def1_after_edits']}; recall@{K} graph "
+        f"{out['graph_recall']:.4f}, exact {out['exact_recall']:.1f} "
+        f"({out['exact_launches']} topk_dist launches); edited docs their "
+        f"own 1-NN; served recall {out['served_recall']:.4f} over "
+        f"{len(tickets)} queries, epochs {out['served_epochs']}, "
+        f"{n_serve} edits, {t['serve']:.1f} s")
+    return out
+
+
+def decode_check(cfg, params, dev, batch=8, prompt=64, steps=16, seed=11):
+    """``prefill`` of ``batch`` prompts of ``prompt`` tokens, then ``steps``
+    ``decode_step``s through the cache written in place, held against
+    ``forward`` over the whole sequence at the reference test's 2e-2
+    (``tests/test_models_smoke.py``) with the weights cast to f32; and in
+    bf16 as shipped, where the gate is bf16's own rounding: if decode and
+    forward are each as close to the f32 forward of the same weights as
+    bf16 allows (``noise``, the bf16 forward's largest distance from it),
+    they differ by at most ``2 * noise`` (the triangle inequality). At
+    stablelm-1.6b's 24 layers bf16 alone moves the logits by ~0.07, past
+    2e-2 (PERF.md, phase 8)."""
+    import torch
+    from repro_torch.data import lm_token_batch
+    from repro_torch.models import transformer
+    from repro_torch.models._params import tree_map
+
+    S = prompt + steps
+    toks = torch.from_numpy(lm_token_batch(cfg.vocab_size, batch, S - 1,
+                                           seed=seed)).to(dev)
+    out = {}
+
+    def run(p, dtype):
+        with torch.inference_mode():
+            full, _ = transformer.forward(cfg, p, toks)
+            pre, pcache = transformer.prefill(cfg, p, toks[:, :prompt])
+            cache = {n: torch.zeros((cfg.num_layers, batch, S,
+                                     cfg.num_kv_heads, cfg.head_dim),
+                                    dtype=dtype, device=dev)
+                     for n in ("k", "v")}
+            for n in cache:
+                cache[n][:, :, :prompt] = pcache[n]
+            del pcache
+            diffs = [(pre, full[:, prompt - 1])]
+            _sync(dev)
+            t0 = time.perf_counter()
+            for q in range(prompt, S):
+                logits, cache = transformer.decode_step(
+                    cfg, p, cache, toks[:, q],
+                    torch.full((batch,), q, device=dev))
+                diffs.append((logits, full[:, q]))
+            _sync(dev)
+            sec = time.perf_counter() - t0
+        ok = all(torch.allclose(a, b, rtol=2e-2, atol=2e-2) for a, b in diffs)
+        err = max(float((a - b).abs().max()) for a, b in diffs)
+        return full, ok, err, batch * steps / sec
+
+    full16, _, err16, tps = run(params, torch.bfloat16)
+    full32, ok32, err32, _ = run(tree_map(lambda w: w.float(), params),
+                                 torch.float32)
+    noise = float((full16 - full32).abs().max())
+    out = {"bf16_max_abs_err": err16, "f32_max_abs_err": err32,
+           "bf16_vs_f32_forward_max_abs": noise, "tokens_per_s": tps}
+    log(f"decode ({cfg.name}): {batch} prompts of {prompt} + {steps} steps, "
+        f"{tps:.1f} tokens/s in bf16; max |decode - forward| f32 {err32:.3g} "
+        f"(2e-2 allowed), bf16 {err16:.4g} (bf16 forward vs f32 forward "
+        f"{noise:.4g})")
+    check(ok32, f"f32 decode logits differ from forward's by up to "
+                f"{err32:.4g} (2e-2 allowed)")
+    check(err16 <= 2 * noise, f"bf16 decode differs from forward by "
+                              f"{err16:.4g}, more than twice bf16's own "
+                              f"rounding ({noise:.4g})")
+    return out
+
+
+def catalogue_phase(cfgs, bulk=262_144, serve=512, catalogue=131_072,
+                    churn_share=0.01, seed=0, dev="cuda"):
+    """The recsys towers at ``cfgs`` (kind -> config), one at a time, each
+    freed before the next: wide-deep at ``serve`` and ``bulk`` rows through
+    the ``embed_bag`` kernel, held against the plain bag; AutoInt and DIEN
+    at ``serve`` rows; SASRec's brute-force retrieval over the whole
+    catalogue, then its first ``catalogue`` items in an ``ip``
+    ``VectorIndex`` with ``churn_share`` delisted and as many new items
+    listed (``examples/recsys_retrieval.py``)."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch import api
+    from repro_torch.core.reach import bfs_unreachable, indegree_unreachable
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels.embed_bag import embed_bag_ref
+    from repro_torch.models import recsys
+
+    out = {}
+
+    def free():
+        _sync(dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+    def timed_forward(cfg, params, n, **kw):
+        batch = recsys.batch_to(recsys_batch(cfg, n, seed=1), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logit, user = recsys.forward(cfg, params, batch, **kw)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(logit.shape) == (n,) and tuple(user.shape) == (
+            n, cfg.embed_dim) and bool(torch.isfinite(logit).all())
+              and bool(torch.isfinite(user).all()),
+              f"{cfg.name} forward at batch {n}")
+        return batch, logit, user, ms
+
+    with torch.inference_mode():
+        cfg = cfgs["wide_deep"]
+        params = recsys.init_params(cfg, seed=seed, device=dev)
+        wd = {}
+        for n in (serve, bulk):
+            batch, logit, user, ms = timed_forward(cfg, params, n)
+            rl, ru = recsys.forward(cfg, params, batch, bag=embed_bag_ref)
+            err = max(float((logit - rl).abs().max()),
+                      float((user - ru).abs().max()))
+            check(torch.allclose(logit, rl, rtol=TOL, atol=TOL)
+                  and torch.allclose(user, ru, rtol=TOL, atol=TOL),
+                  f"wide-deep at batch {n}: the embed_bag kernel's forward "
+                  f"differs from the plain bag's by {err:.3g}")
+            wd[n] = {"ms": ms, "max_abs_err_vs_plain_bag": err}
+            del batch, logit, user, rl, ru
+        out["wide_deep"] = wd
+        del params
+        free()
+        for kind in ("autoint", "dien"):
+            cfg = cfgs[kind]
+            params = recsys.init_params(cfg, seed=seed, device=dev)
+            *_, ms = timed_forward(cfg, params, serve)
+            out[kind] = {"ms": ms}
+            del params
+            free()
+
+        cfg = cfgs["sasrec"]
+        params = recsys.init_params(cfg, seed=seed, device=dev)
+        batch = recsys.batch_to(recsys_batch(cfg, serve, seed=1), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        u = recsys.user_repr(cfg, params, batch)
+        top, ids = recsys.retrieval_scores(cfg, params, batch, k=100)
+        _sync(dev)
+        out["sasrec"] = {"retrieval_ms": (time.perf_counter() - t0) * 1e3}
+        scores = u @ params["item_embed"].T
+        scores[:, cfg.n_items:] = -float("inf")
+        srt = torch.sort(scores[0], descending=True, stable=True)
+        check(torch.equal(ids[0], srt.indices[:100])
+              and torch.equal(top[0], srt.values[:100]),
+              "SASRec retrieval top-100 differs from a stable sort")
+        check(bool((ids < cfg.n_items).all()), "a padding row was retrieved")
+        del scores, srt
+
+        items = params["item_embed"][:catalogue].cpu().numpy()
+        D = cfg.embed_dim
+        vi = api.create(space="ip", dim=D, capacity=catalogue, M=16,
+                        ef_construction=64, num_layers=4, ef_search=64,
+                        strategy="mn_ru_gamma", seed=seed, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        vi.add_items(items)
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        def1 = vi.health().asdict()["unreachable_def1"]
+        rng = np.random.default_rng(seed + 51)
+        n_churn = max(int(churn_share * catalogue), 1)
+        delisted = rng.choice(catalogue, n_churn, replace=False)
+        new_items = rng.normal(size=(n_churn, D)).astype(np.float32)
+        new_items /= np.linalg.norm(new_items, axis=1, keepdims=True)
+        new_labels = cfg.n_items + np.arange(n_churn)
+        _sync(dev)
+        t0 = time.perf_counter()
+        vi.mark_deleted(delisted)
+        vi.replace_items(new_items, new_labels)
+        _sync(dev)
+        churn_s = time.perf_counter() - t0
+        check(vi.count == catalogue, "catalogue live count after churn")
+        uq = u.cpu().numpy()
+        g_lab, _ = vi.knn_query(uq, k=K)
+        check(not np.isin(g_lab, delisted).any(),
+              "a delisted item surfaced in a user's top-10")
+        # each new item is reachable and its own exact 1-NN; the graph
+        # tier's share is reported (ip is no metric: at ef_search 64 its
+        # beam can miss a reachable item, PERF.md, phase 8)
+        ix = vi.index
+        slots = torch.tensor([T.slot_of_label(ix, int(lab))
+                              for lab in new_labels], device=ix.device)
+        stranded = int((indegree_unreachable(ix)[slots]
+                        | bfs_unreachable(ix)[slots]).sum())
+        check(stranded == 0, f"{stranded} newly listed items are "
+                             f"unreachable")
+        launches0 = topk_dist_launches()
+        self_lab, _ = vi.knn_query(new_items, k=1, mode="exact")
+        check(np.array_equal(self_lab[:, 0], new_labels),
+              "a newly listed item is not its own exact 1-NN")
+        e_lab, e_d = vi.knn_query(uq, k=K, mode="exact")
+        exact_launches = topk_dist_launches() - launches0
+        g_self, _ = vi.knn_query(new_items, k=1, mode="graph")
+        self_hit = float(np.mean(g_self[:, 0] == new_labels))
+        keep = np.ones(catalogue, bool)
+        keep[delisted] = False
+        live_lab = np.concatenate([np.nonzero(keep)[0], new_labels])
+        live_vec = torch.from_numpy(np.concatenate([items[keep], new_items]
+                                                   )).to(dev)
+        bf = u @ live_vec.T
+        bsrt = torch.sort(bf, dim=1, descending=True, stable=True)
+        truth = live_lab[bsrt.indices[:, :K].cpu().numpy()]
+        truth_d = 1.0 - bsrt.values[:, :K].cpu().numpy()
+        exact = exact_recall(e_lab, e_d, truth, truth_d)
+        check(exact == 1.0, f"catalogue exact-tier recall@{K} {exact}")
+        graph = recall(g_lab, truth)
+        out["sasrec"].update({
+            "catalogue": catalogue, "build_s": build_s, "def1": def1,
+            "churn": n_churn, "churn_s": churn_s,
+            "def1_after_churn": vi.health().asdict()["unreachable_def1"],
+            "graph_recall": graph, "exact_recall": exact,
+            "exact_launches": exact_launches,
+            "new_self_1nn_graph": self_hit})
+        del params, vi, bf, live_vec
+        free()
+    log(f"catalogue: wide-deep forward {wd[serve]['ms']:.2f} ms at "
+        f"{serve} rows, {wd[bulk]['ms']:.2f} ms at {bulk} (the bag on the "
+        f"embed_bag kernel; vs the plain bag max abs err "
+        f"{max(v['max_abs_err_vs_plain_bag'] for v in wd.values()):.3g}); "
+        f"autoint {out['autoint']['ms']:.2f} ms, dien {out['dien']['ms']:.2f} "
+        f"ms at {serve}; sasrec user_repr + top-100 over "
+        f"{cfgs['sasrec'].items_padded} items {out['sasrec']['retrieval_ms']:.2f}"
+        f" ms (equal to a stable sort); catalogue of {catalogue} built in "
+        f"{build_s:.1f} s (Definition 1 {def1}), {n_churn} delisted + listed "
+        f"in {churn_s:.2f} s; recall@{K} graph {graph:.4f}, exact {exact:.1f}"
+        f"; new items reachable and their own exact 1-NN (graph tier "
+        f"{self_hit:.4f}); no delisted item surfaced")
+    return out
+
+
+def substrate_phase(smoke=False, n_docs=None, catalogue=None, bulk=None,
+                    dev="cuda"):
+    """Phase 8: the RAG scenario on stablelm-1.6b, then the catalogue
+    scenario on the four recsys towers, at their published configs:
+    16,384 documents, a catalogue of 131,072 items, wide-deep's bulk batch
+    of 262,144 (``smoke=True``: the reduced configs at 512 documents, 448
+    items and 2,048 rows, a CPU rehearsal of a few minutes)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    get = get_smoke_config if smoke else get_config
+    sizes = (512, 448, 2048) if smoke else (16384, 131_072, 262_144)
+    n_docs, catalogue, bulk = (given or default for given, default in
+                               zip((n_docs, catalogue, bulk), sizes))
+    out = {"rag": rag_phase(get("stablelm-1.6b"), n_docs=n_docs, dev=dev)}
+    cfgs = {k: get(k) for k in ("wide_deep", "autoint", "dien", "sasrec")}
+    out["catalogue"] = catalogue_phase(cfgs, bulk=bulk, catalogue=catalogue,
+                                       dev=dev)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -1187,6 +1654,20 @@ def main(argv=None) -> int:
     log(f"phase 7 launched topk_dist {launches['7']} times in the port (the "
         f"sharded engine pins the graph tier), {Live.truth_launches} more "
         f"for the ground truth")
+
+    log("cut: phase 8's ANN catalogue holds the first 131,072 of SASRec's "
+        "1,000,000 items (a wave build of the whole catalogue takes ~380 s)")
+    from repro_torch.kernels.embed_bag import embed_bag
+    embed_bag.launches = 0
+    topk_dist.launches = Live.truth_launches = 0
+    results["8_substrate"] = timed("8_substrate", substrate_phase)
+    launches["8"] = topk_dist_launches()
+    eb_report["launches"] = embed_bag.launches
+    log(f"phase 8 launched embed_bag {embed_bag.launches} times (wide-deep's "
+        f"bag) and topk_dist {launches['8']} times in the port (the exact "
+        f"tier), {Live.truth_launches} more for the ground truth")
+    check(embed_bag.launches > 0, "phase 8 never launched embed_bag")
+    check(launches["8"] > 0, "phase 8 never launched topk_dist")
     report["launches"] = sum(launches.values())
     results["topk_dist_launches_by_phase"] = launches
     results["kernels"] = [report, l2_report, eb_report]

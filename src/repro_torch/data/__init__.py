@@ -1,3 +1,7 @@
-from .synthetic import brute_force_knn, clustered_vectors, exact_knn
+from .pipeline import PrefetchPipeline, SyntheticStream
+from .synthetic import (brute_force_knn, clustered_vectors, exact_knn,
+                        lm_token_batch, recsys_batch)
 
-__all__ = ["brute_force_knn", "clustered_vectors", "exact_knn"]
+__all__ = ["brute_force_knn", "clustered_vectors", "exact_knn",
+           "lm_token_batch", "recsys_batch", "PrefetchPipeline",
+           "SyntheticStream"]

@@ -1,0 +1,54 @@
+"""Carry parameters across from the JAX reference's trees.
+
+The reference's params, taken to numpy on its side
+(``jax.tree.map(np.asarray, params)``), come in as a tree of dicts and
+lists of numpy arrays; the port's tree has the same structure, so the carry
+is a tree map that checks every leaf's shape against the model's
+``param_spec``. Dtypes are kept as they come (the forwards follow the
+parameters' dtype, so an f32-cast tree runs in f32). A JAX bf16 array comes to numpy as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` does not take: its bits travel as int16 and are
+viewed as ``torch.bfloat16`` again, unchanged.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.common import resolve_device
+from . import recsys, transformer
+from ._params import Leaf, tree_map
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a tensor on
+    ``device``, bit for bit."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:          # torch tensors are always writable
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def _carry(spec, tree, device):
+    def leaf(s: Leaf, a):
+        t = tensor_from_numpy(a, device)
+        if tuple(t.shape) != tuple(s.shape):
+            raise ValueError(f"reference leaf of shape {tuple(t.shape)}, "
+                             f"expected {tuple(s.shape)}")
+        return t
+    return tree_map(leaf, spec, tree)
+
+
+def lm_params_from_reference(cfg, tree, device="cuda") -> dict:
+    """The reference's dense-LM params (numpy leaves) as the port's tree on
+    ``device``. A config with ``moe=True`` raises ``NotImplementedError``."""
+    return _carry(transformer.param_spec(cfg), tree, device)
+
+
+def recsys_params_from_reference(cfg, tree, device="cuda") -> dict:
+    """The reference's recsys params (numpy leaves) as the port's tree on
+    ``device``."""
+    return _carry(recsys.param_spec(cfg), tree, device)

@@ -217,3 +217,24 @@ def test_embed_bag_kernel_matches_plain(cuda, mode, dtype, v, d, b, l):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     assert bool((out[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "published"])
+def test_wide_deep_forward_on_the_kernel_matches_the_plain_bag(cuda, smoke):
+    """wide-deep's bag launches ``embed_bag`` on the card; the same forward
+    with the plain bag agrees to 1e-4 (f32 sums in another order)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys
+    cfg = (get_smoke_config if smoke else get_config)("wide-deep")
+    params = recsys.init_params(cfg, seed=0, device=cuda)
+    batch = recsys.batch_to(recsys_batch(cfg, 512, 1), cuda)
+    before = embed_bag.launches
+    with torch.inference_mode():
+        logit, user = recsys.forward(cfg, params, batch)
+        assert embed_bag.launches == before + 1
+        rl, ru = recsys.forward(cfg, params, batch, bag=embed_bag_ref)
+    assert embed_bag.launches == before + 1
+    torch.testing.assert_close(logit, rl, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(user, ru, rtol=1e-4, atol=1e-4)

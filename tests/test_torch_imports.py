@@ -24,7 +24,11 @@ PORTED = ["core/maintenance.py", "api/facade.py", "api/__init__.py",
           "serving/metrics.py", "serving/snapshot.py", "serving/batcher.py",
           "serving/update_queue.py", "serving/engine.py",
           "serving/__init__.py", "launch/serve.py", "kernels/_build.py",
-          "core/distributed.py", "launch/mesh.py"]
+          "core/distributed.py", "launch/mesh.py", "configs/__init__.py",
+          "configs/base.py", "configs/stablelm_1_6b.py",
+          "configs/wide_deep.py", "data/pipeline.py", "data/synthetic.py",
+          "models/__init__.py", "models/_params.py", "models/convert.py",
+          "models/modules.py", "models/recsys.py", "models/transformer.py"]
 KERNELS = ["topk_dist", "l2dist", "embed_bag"]
 
 
