@@ -12,14 +12,18 @@ Phases, each of which exits nonzero on failure:
      the bound and a library yardstick: ``topk_dist`` (l2 and ip, the
      reference's test shapes, a ~30% mask, fewer than k eligible rows, an
      empty batch, duplicate rows (ties), rows of norm ~1e4 (the l2 form's
-     cancellation), the exact tier's main-path shape 64 x N x 128, and the
-     1,000-query ground-truth call over it),
+     cancellation), the exact tier's main-path shape 64 x N x 128, the
+     1,000-query ground-truth call over it, a bf16 copy of that index
+     (f32 and bf16 queries, timed beside its bf16 byte bound) and the
+     large-k route at 64 x 65,536 x 128: k = 129, 1,000, N and past N,
+     f32 and bf16),
      ``l2dist`` (a serving batch against the index, 64 x N x 128, f32 and
      bf16, l2 and ip, plus the test shapes) and ``embed_bag`` (wide-deep's
      1,000,000 x 32 table, 4096 bags of 32 with ~10% padding, sum and
      mean, plus the test shapes, and phase 8's 262,144 bags of 32, whose
-     times the kernel report gives); each wrapper is first driven through
-     its public entry point at those shapes, and its launches counted;
+     times the kernel report gives, with the lane-group layout it took);
+     each wrapper is first driven through its public entry point at those
+     shapes, and its launches counted;
   3. the main path at the paper's SIFT1M shape: wave build, 5 rounds of 1%
      MN-RU-gamma churn, queries (graph and exact tier) with recall against
      the kernel's exact ground truth, unreachable counts, then a backup
@@ -34,6 +38,11 @@ Phases, each of which exits nonzero on failure:
      interleaved with 1% deletes + 1% replaces over 3 epochs, with a
      policy that consolidates, every ticket checked against exact ground
      truth over its epoch's live set;
+  5b. (run after 6) the facade over a bf16 index at phase 5's 65,536 x
+     128: build, 1% deletes + replaces, exact and graph queries at k = 10
+     and 200; the index stores bf16, the exact tier equals a plain f32
+     brute force over the widened stored vectors, and launches
+     ``topk_dist`` (k = 200 on its large-k route);
   7. the sharded index and the sharded serving engine: 2^19 x 128 in 4
      shards placed on this host's devices (all on one card when there is
      one), recall of the merged answer and its equality with the stable
@@ -237,14 +246,65 @@ def kernel_phase(N_main):
         f"operations {t_ops:.4f} as 3xTF32; {t_fma:.4f} on the f32 FMA "
         f"route), max abs err {max_err:.3g}; 1000 queries (the ground "
         f"truth's call) {truth_ms:.4f} ms")
+    extra = {"fma_route_ms": t_fma, "truth_1000_ms": truth_ms,
+             **bf16_and_large_k(compare, rand, Q, Y, mask, N_main)}
     return {"name": "topk_dist", "route": "cuda",
             "source": "src/repro_torch/kernels/topk_dist/csrc/topk_dist.cu",
             "replaces": "src/repro/kernels/topk_dist/topk_dist.py:99",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": library_ms}, {"fma_route_ms": t_fma,
-                                        "truth_1000_ms": truth_ms}
+            "library_ms": library_ms}, extra
+
+
+def bf16_and_large_k(compare, rand, Q, Y, mask, N_main, n_large=65_536,
+                     n_all=8192):
+    """``topk_dist`` where the reference's kernel takes more than f32 and
+    k <= 128: a bf16 copy of the main-shape index (f32 and bf16 queries),
+    timed at k = 10 beside its bf16 byte bound, then the large-k route in
+    f32 and bf16: k = 129 and 1,000 at ``n_large`` rows (timed), k = N and
+    N + 5 at ``n_all`` rows."""
+    import torch
+    from repro_torch.kernels.topk_dist import topk_dist, topk_dist_ref
+
+    out = {}
+    Yb = Y.to(torch.bfloat16)
+    for metric in ("l2", "ip"):
+        compare(Q, Yb, K, metric, mask, f"bf16 64x{N_main}x128")
+        compare(Q.to(torch.bfloat16), Yb[:100_000], K, metric, mask[:100_000],
+                "bf16 Q and Y, 64x100000x128")
+    nq, d = Q.shape
+    out["bf16_ms"] = cuda_ms(lambda: topk_dist(Q, Yb, K, mask=mask), 20)
+    out["bf16_plain_ms"] = cuda_ms(
+        lambda: topk_dist_ref(Q, Yb, K, mask=mask), 3)
+    out["bf16_bound_ms"] = (2 * N_main * d + 4 * nq * d + N_main
+                            + nq * K * 8) / PEAK_BYTES * 1e3
+    log(f"topk_dist bf16 Y, f32 Q, 64x{N_main}x128 k={K}: kernel "
+        f"{out['bf16_ms']:.4f} ms, plain {out['bf16_plain_ms']:.4f} ms, byte "
+        f"bound {out['bf16_bound_ms']:.4f} ms (f32 Y: see above)")
+
+    Yl, ml = Y[:n_large], mask[:n_large]
+    for n, ks in ((n_large, (129, 1000)), (n_all, (n_all, n_all + 5))):
+        for k in ks:
+            for Yk in (Yl[:n], Yl[:n].to(torch.bfloat16)):
+                for metric, m in (("l2", ml[:n]), ("ip", None)):
+                    compare(Q, Yk, k, metric, m,
+                            f"k={k} {Yk.dtype} 64x{n}x128")
+    Ylb = Yl.to(torch.bfloat16)
+    large = {}
+    for k in (129, 1000):
+        large[k] = {
+            "f32_ms": cuda_ms(lambda: topk_dist(Q, Yl, k, mask=ml), 10),
+            "bf16_ms": cuda_ms(lambda: topk_dist(Q, Ylb, k, mask=ml), 10),
+            "plain_ms": cuda_ms(lambda: topk_dist_ref(Q, Yl, k, mask=ml), 3)}
+        log(f"topk_dist large-k route 64x{n_large}x128 k={k}: f32 "
+            f"{large[k]['f32_ms']:.4f} ms, bf16 {large[k]['bf16_ms']:.4f} "
+            f"ms, plain {large[k]['plain_ms']:.4f} ms")
+    out["large_k"] = large
+    log(f"topk_dist: bf16 and k = 129, 1000 (N = {n_large}), {n_all}, "
+        f"{n_all + 5} (N = {n_all}) agree with the plain version up to "
+        f"ties at the k-th distance")
+    return out
 
 
 def l2dist_phase(N_main):
@@ -357,6 +417,7 @@ def embed_bag_phase(V=1_000_000, D=32, B=4096, L=32, pad=0.1):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embed_bag import embed_bag, embed_bag_ref
+    from repro_torch.kernels.embed_bag.embed_bag import lane_layout
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
@@ -446,15 +507,21 @@ def embed_bag_phase(V=1_000_000, D=32, B=4096, L=32, pad=0.1):
             f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
             f"({m['bound_by']}; every valid row gathered once: "
             f"{m['gather_ms']:.4f} ms)")
+    layout = {"f32": lane_layout(table), "bf16": lane_layout(tb16)}
     log(f"embed_bag {B} bags: mean {small['mean_ms']:.4f} ms, bf16 sum "
-        f"{small['bf16_sum_ms']:.4f} ms; max abs err {max_err:.3g}")
+        f"{small['bf16_sum_ms']:.4f} ms; max abs err {max_err:.3g}; lane "
+        f"groups at D = {D}: " + "; ".join(
+            f"{dt} {m['values_per_lane']} values a lane, "
+            f"{m['lanes_per_row']} lanes a row, {m['rows_per_load']} rows a "
+            f"load instruction" for dt, m in layout.items()))
     report = {"name": "embed_bag", "route": "cuda",
               "source": "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
               "replaces": "src/repro/kernels/embed_bag/embed_bag.py:45",
               "launches": launches, "max_abs_err": max_err,
               **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
-    return report, {"bags_4096": small, "serve_bulk": bulk}
+    return report, {"bags_4096": small, "serve_bulk": bulk,
+                    "lane_layout": layout}
 
 
 # ---------------------------------------------------------------------------
@@ -830,6 +897,87 @@ def facade_phase(N=65_536, rounds=3, share=0.05, pending=0.01, seed=0,
         f"{t['compact']:.1f} s, recall after {out['recall_after_compact']:.4f}"
         f"; save/load {t['save_load']:.1f} s; query s "
         + ", ".join(f"{m} {t['query_' + m]:.3f}" for m in rec))
+    return out
+
+
+def bf16_facade_phase(N=65_536, share=0.01, seed=0, dev="cuda"):
+    """The facade over a bf16 index: phase 5's data and parameters with
+    ``dtype=torch.bfloat16``, a build, 1% deletes + replaces, then queries
+    in the exact and the graph tier at k = 10 and 200 (k = 200 takes
+    ``topk_dist``'s large-k route). The index must store bf16 (2 bytes a
+    value), the exact tier must equal a plain f32 brute force over the
+    stored vectors widened to f32, and the exact queries must launch the
+    kernel."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.data import clustered_vectors
+    from repro_torch.kernels.topk_dist import topk_dist_ref
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t = {}
+
+    def step(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        t[name] = time.perf_counter() - t0
+        return r
+
+    X = clustered_vectors(N, 128, seed=0)
+    vi = api.create(space="l2", dim=128, capacity=N, M=16, M0=32,
+                    num_layers=4, ef_construction=64, ef_search=64,
+                    strategy="mn_ru_gamma", seed=seed, dtype=torch.bfloat16,
+                    device=dev)
+    step("build", lambda: vi.add_items(X))
+    rng = np.random.default_rng(seed + 17)
+    churn = int(round(share * N))
+    dels = rng.choice(N, churn, replace=False)
+    newX = clustered_vectors(churn, 128, seed=0, noise_seed=400)
+
+    def churn_round():
+        vi.mark_deleted(dels)
+        vi.replace_items(newX, np.arange(N, N + churn))
+    step("churn", churn_round)
+    ix = vi.index
+    check(ix.vectors.dtype == torch.bfloat16
+          and ix.vectors.element_size() == 2,
+          f"the bf16 facade stores {ix.vectors.dtype}")
+    check(vi.count == N, "bf16 facade live count after churn")
+    live = ((ix.levels >= 0) & ~ix.deleted).nonzero().reshape(-1)
+    Yw = ix.vectors[live].float()          # the stored values, widened
+    Q = torch.from_numpy(clustered_vectors(1000, 128, seed=0,
+                                           noise_seed=3)).to(dev)
+    Qn = Q.cpu().numpy()
+    out = {"N": N, "stored_dtype": str(ix.vectors.dtype),
+           "vector_bytes": ix.vectors.numel() * ix.vectors.element_size()}
+    launches0 = topk_dist_launches()
+    for k in (K, 200):
+        td, ti = topk_dist_ref(Q, Yw, k)
+        truth = ix.labels[live[ti.long()]].cpu().numpy()
+        truth_d = td.cpu().numpy()
+        for mode in ("exact", "graph"):
+            lab, dist = step(f"query_{mode}_{k}",
+                             lambda: vi.knn_query(Qn, k=k, mode=mode))
+            check(lab.shape == (1000, k) and np.isfinite(dist).all(),
+                  f"bf16 knn_query mode={mode} k={k} shape or values")
+            out[f"recall_{mode}_{k}"] = (
+                exact_recall(lab, dist, truth, truth_d) if mode == "exact"
+                else recall(lab, truth))
+        check(out[f"recall_exact_{k}"] == 1.0,
+              f"bf16 exact-tier recall@{k} {out[f'recall_exact_{k}']}")
+    out["exact_launches"] = topk_dist_launches() - launches0
+    check(out[f"recall_graph_{K}"] >= 0.9,
+          f"bf16 graph recall@{K} {out[f'recall_graph_{K}']:.4f} < 0.9")
+    out["seconds"] = t
+    log(f"bf16 facade: N {N}, vectors {out['stored_dtype']} "
+        f"({out['vector_bytes']} bytes), build {t['build']:.1f} s, 1% churn "
+        f"{t['churn']:.2f} s; recall@10 exact {out['recall_exact_10']:.4f} "
+        f"graph {out['recall_graph_10']:.4f}; recall@200 exact "
+        f"{out['recall_exact_200']:.4f} graph {out['recall_graph_200']:.4f}; "
+        f"query s " + ", ".join(f"{k[6:]} {v:.3f}" for k, v in t.items()
+                                if k.startswith("query_")))
     return out
 
 
@@ -1643,6 +1791,13 @@ def main(argv=None) -> int:
             f"the port, {Live.truth_launches} more for the ground truth")
     check(launches["5"] + launches["6"] > 0,
           "phases 5-6 never launched topk_dist")
+    log("cut: the bf16 facade phase runs phase 5's N = 65,536 x 128 (phase "
+        "5's cut of SIFT1M's 2^20), with 1% churn and no maintenance")
+    topk_dist.launches = Live.truth_launches = 0
+    results["5b_bf16_facade"] = timed("5b_bf16_facade", bf16_facade_phase)
+    launches["5b"] = topk_dist_launches()
+    log(f"phase 5b launched topk_dist {launches['5b']} times in the port")
+    check(launches["5b"] >= 2, "phase 5b never launched topk_dist")
     check(results["6_serving"]["served_recall"] >= 0.9 * results[
         "main_path"]["rounds"][-1]["graph_recall"],
           "served recall < 0.9 x the graph recall after churn")

@@ -144,7 +144,7 @@ class VectorIndex:
 
     def _prep_vectors(self, X) -> np.ndarray:
         if isinstance(X, torch.Tensor):
-            X = X.detach().cpu().numpy()
+            X = X.detach().cpu().float().numpy()
         X = np.asarray(X, np.float32)
         if X.ndim == 1:
             X = X[None, :]
@@ -249,9 +249,11 @@ class VectorIndex:
             self.grow(used + n)
 
         if used == 0:
-            # bulk path: one build (waves from WAVE_BUILD_MIN_N points)
-            self._index = build(self.params, X, labels, seed=self._seed,
-                                capacity=self.capacity,
+            # bulk path: one build (waves from WAVE_BUILD_MIN_N points) over
+            # the vectors cast to the index's dtype, as the reference does
+            self._index = build(self.params, torch.from_numpy(X).to(
+                                    self._index.vectors.dtype), labels,
+                                seed=self._seed, capacity=self.capacity,
                                 generator=self.generator, device=self.device)
         else:
             self._apply_tape(np.full(n, OP_INSERT, np.int32), labels, X)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .common import (INF, INVALID, dedup_ids, nonzero_padded, pow2_at_least,
-                     resolve_device, stable_argsort)
+                     resolve_device, stable_argsort, storage_tensor)
 from .hnsw import _pad_row, insert
 from .index import HNSWIndex, HNSWParams, empty_index, sample_level, \
     sample_levels
@@ -680,18 +680,22 @@ def build_batch(params: HNSWParams, vectors, labels=None, seed: int = 0,
 
     Slots are assigned in ascending order (no reuse-cursor rotation), so
     point ``i`` lands in slot ``i``. Levels come from ``generator``
-    (default: a CPU generator seeded with ``seed``) or from ``draws``.
+    (default: a CPU generator seeded with ``seed``) or from ``draws``. The
+    index stores the vectors in their own dtype, as ``build`` does.
     """
     dev = resolve_device(device)
-    vectors = _host(vectors).astype(np.float32, copy=False)
-    n, d = vectors.shape
+    X = storage_tensor(vectors)
+    n, d = X.shape
     labels = np.arange(n, dtype=np.int32) if labels is None else _host(labels)
-    index = empty_index(params, capacity or n, d, seed, device=dev)
+    index = empty_index(params, capacity or n, d, seed, dtype=X.dtype,
+                        device=dev)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
+    # the tape carries f32 (as the reference's); a wave casts its lanes back
+    # to the storage dtype, exactly, since they were widened from it
     plan = compile_tape(np.full((n,), OP_INSERT, np.int32),
-                        np.asarray(labels, np.int32), vectors, built=0,
-                        min_wave=min_wave, max_wave=max_wave)
+                        np.asarray(labels, np.int32), X.float().numpy(),
+                        built=0, min_wave=min_wave, max_wave=max_wave)
     return apply_plan(params, index, plan, rotate_slots=False,
                       generator=generator, draws=draws,
                       scan_max_elems=scan_max_elems)

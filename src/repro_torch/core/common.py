@@ -6,10 +6,13 @@ reference used ``vmap``. Sorting is always stable, so ties keep index order
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF = float("inf")
 INVALID = -1
+#: the storage dtypes an index keeps as the caller gives them
+STORAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def pow2_at_least(n: int) -> int:
@@ -30,6 +33,44 @@ def resolve_device(device) -> torch.device:
                            "but no GPU is available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def tensor_from_host(a, device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, bit for bit. A bf16 array
+    reaches numpy as ``ml_dtypes.bfloat16`` (a JAX array's) or as 2-byte
+    void (``np.load`` of such an array from an npz); ``torch.from_numpy``
+    takes neither, so the bits travel as int16 and are viewed as
+    ``torch.bfloat16`` again."""
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy(order="C")          # torch tensors are always writable
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bf16 as 2-byte void, the bits the
+    reference's npz files hold for a bf16 array."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def storage_tensor(vectors, device="cpu") -> torch.Tensor:
+    """``vectors[n, d]`` as an index stores them: in the caller's dtype when
+    it is f32, bf16 or f16, as the reference keeps ``vectors.dtype``;
+    float64 and non-float inputs as f32 (JAX, without x64, narrows float64
+    to f32)."""
+    X = (vectors if isinstance(vectors, torch.Tensor)
+         else tensor_from_host(np.asarray(vectors)))
+    if X.dtype not in STORAGE_DTYPES:
+        X = X.float()
+    return X.to(resolve_device(device))
 
 
 def stable_argsort(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

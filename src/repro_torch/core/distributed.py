@@ -20,7 +20,7 @@ import torch
 
 from ..launch.mesh import make_local_mesh
 from .batch_update import _host
-from .common import INF, stable_argsort
+from .common import INF, stable_argsort, storage_tensor
 from .hnsw import WAVE_BUILD_MIN_N, build, insert
 from .index import FIELDS, HNSWIndex, HNSWParams, from_arrays, to_arrays
 from .search import batch_knn
@@ -83,7 +83,7 @@ def build_sharded(params: HNSWParams, vectors, labels=None, *, nshards: int,
     ``WAVE_BUILD_MIN_N`` points) or the wave draws (``build_batch``'s
     ``draws``) to use.
     """
-    X = _host(vectors).astype(np.float32, copy=False)
+    X = storage_tensor(vectors)
     n = X.shape[0]
     labels = (np.arange(n, dtype=np.int32) if labels is None
               else _host(labels).astype(np.int32))
@@ -105,9 +105,9 @@ def build_sharded(params: HNSWParams, vectors, labels=None, *, nshards: int,
         if draws is not None:
             feed = ({"draws": draws[s]} if len(sel) >= WAVE_BUILD_MIN_N
                     else {"levels": draws[s]})
-        shards.append(build(params, X[sel], labels[sel], seed=seed + s,
-                            capacity=cap, device=devices[s % len(devices)],
-                            **feed))
+        shards.append(build(params, X[torch.from_numpy(sel)], labels[sel],
+                            seed=seed + s, capacity=cap,
+                            device=devices[s % len(devices)], **feed))
     return ShardedIndex(shards)
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import INF, INVALID, resolve_device
+from .common import INF, INVALID, resolve_device, storage_tensor
 from .index import HNSWIndex, HNSWParams, empty_index, sample_level
 from .metrics import dist_point
 from .prune import select_neighbors
@@ -150,7 +150,9 @@ def build(params: HNSWParams, vectors, labels=None, seed: int = 0,
     from :data:`WAVE_BUILD_MIN_N` points. Levels come from ``generator``
     (default: a CPU generator seeded with ``seed``); for parity with the
     reference the sequential builder takes per-point ``levels`` instead,
-    and the wave builder ``build_batch``'s ``draws``.
+    and the wave builder ``build_batch``'s ``draws``. The index stores the
+    vectors in their own dtype (:func:`~repro_torch.core.common.
+    storage_tensor`: f32, bf16 or f16), as the reference does.
     """
     if execution not in ("auto", "wave", "sequential"):
         raise ValueError(f"unknown build execution {execution!r}; expected "
@@ -164,12 +166,13 @@ def build(params: HNSWParams, vectors, labels=None, seed: int = 0,
                            capacity=capacity, generator=generator,
                            draws=draws, device=device)
     dev = resolve_device(device)
-    X = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
+    X = storage_tensor(vectors, dev)
     d = X.shape[1]
     labels = list(range(n)) if labels is None else [int(v) for v in labels]
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
-    index = empty_index(params, capacity or n, d, seed, device=dev)
+    index = empty_index(params, capacity or n, d, seed, dtype=X.dtype,
+                        device=dev)
     for i in range(n):
         insert(params, index, X[i], i, labels[i],
                None if levels is None else int(levels[i]), generator)

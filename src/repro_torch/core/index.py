@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from .common import resolve_device
+from .common import host_array, resolve_device, tensor_from_host
 
 FIELDS = ("vectors", "labels", "levels", "neighbors", "deleted", "entry",
           "max_layer", "count", "rng")
@@ -159,11 +159,12 @@ def from_arrays(d: dict, device="cuda") -> HNSWIndex:
         a = np.asarray(d[name])
         if name in dtypes:
             a = a.astype(dtypes[name], copy=False)
-        t = torch.from_numpy(np.array(a, copy=True, order="C"))
+        t = tensor_from_host(np.array(a, copy=True, order="C"))
         out[name] = t if name == "rng" else t.to(dev)
     return HNSWIndex(**out)
 
 
 def to_arrays(index: HNSWIndex) -> dict[str, np.ndarray]:
-    """The index as numpy arrays in the facade's npz layout."""
-    return {name: getattr(index, name).cpu().numpy() for name in FIELDS}
+    """The index as numpy arrays in the facade's npz layout (bf16 vectors
+    as the reference's npz holds them: 2-byte void)."""
+    return {name: host_array(getattr(index, name)) for name in FIELDS}

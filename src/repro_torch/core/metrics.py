@@ -7,8 +7,12 @@ Built-in spaces (hnswlib-compatible naming):
   * ``cosine`` — same distance function as ``ip``; vectors and queries are
                  unit-normalised at ingest (``normalize_ingest=True``).
 
-Distances accumulate in float32 whatever the storage dtype. Shapes carry
-an explicit batch: ``point_fn(q[..., d], X[..., C, d]) -> [..., C]`` and
+Distances accumulate in float32 whatever the storage dtype, and round
+where the reference's do as XLA compiles them: the l2 point form's
+difference in the inputs' common dtype (bf16 for two bf16 vectors), then
+its square and sum in f32; the ip point form's products and both
+pairwise (matmul) forms wholly in f32. Shapes carry an explicit batch:
+``point_fn(q[..., d], X[..., C, d]) -> [..., C]`` and
 ``pairwise_fn(A[..., n, d], B[..., m, d]) -> [..., n, m]``.
 """
 from __future__ import annotations
@@ -22,26 +26,27 @@ import torch
 
 def sqdist_point(q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Squared L2 distance from ``q[..., d]`` to rows of ``X[..., C, d]``."""
-    diff = X - q.unsqueeze(-2)
-    return torch.sum(diff * diff, dim=-1, dtype=torch.float32)
+    diff = (X - q.unsqueeze(-2)).float()
+    return torch.sum(diff * diff, dim=-1)
 
 
 def sqdist_pairwise(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Pairwise squared L2 ``[..., n, m]`` in matmul form, clamped at 0."""
-    na = torch.sum(A * A, dim=-1, keepdim=True, dtype=torch.float32)
-    nb = torch.sum(B * B, dim=-1, dtype=torch.float32).unsqueeze(-2)
-    d = na + nb - 2.0 * (A @ B.transpose(-1, -2)).float()
+    A, B = A.float(), B.float()
+    na = torch.sum(A * A, dim=-1, keepdim=True)
+    nb = torch.sum(B * B, dim=-1).unsqueeze(-2)
+    d = na + nb - 2.0 * (A @ B.transpose(-1, -2))
     return torch.clamp_min(d, 0.0)
 
 
 def ipdist_point(q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Inner-product distance ``1 - <q, x>`` to rows of ``X[..., C, d]``."""
-    return 1.0 - torch.sum(X * q.unsqueeze(-2), dim=-1, dtype=torch.float32)
+    return 1.0 - torch.sum(X.float() * q.float().unsqueeze(-2), dim=-1)
 
 
 def ipdist_pairwise(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Pairwise inner-product distance ``[..., n, m]``: ``1 - A @ B^T``."""
-    return 1.0 - (A @ B.transpose(-1, -2)).float()
+    return 1.0 - (A.float() @ B.float().transpose(-1, -2))
 
 
 @dataclasses.dataclass(frozen=True)

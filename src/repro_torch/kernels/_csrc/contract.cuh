@@ -45,6 +45,14 @@
 //     is the route to the full rate.
 //   * bf16: m16n8k16 bf16 with f32 accumulation, one product per fragment
 //     (a bf16 x bf16 product is exact in f32).
+//   * f32 Q with bf16 Y (run<__nv_bfloat16, float>, topk_dist's exact tier
+//     over a bf16 index): Y is read in its own type, half the bytes. A bf16
+//     value widens to f32 exactly and its 8 significant bits fit TF32's 11,
+//     so Y's lo half is zero and 3xTF32 loses a product: lo*hi + hi*hi, as
+//     exact as an f32 sum. A 128-byte Y slice holds 64 values, so each Y
+//     slice pairs with two Q slices (the wrapper pads Q to a multiple of 64
+//     columns); lane (g, tq) takes values 16 tq .. 16 tq + 15 of each row
+//     (Y: chunks 2 tq, 2 tq + 1; Q: half of one Q slice), as eight k-steps.
 //   * |y|^2 is plain f32 FMA over the same fragment registers.
 #pragma once
 
@@ -69,27 +77,29 @@ constexpr unsigned FULL = 0xffffffffu;
 // starts at a 1024-byte boundary (the swizzle's period), so 1 KiB of slack
 // and the 2 MAX_STAGES + 1 mbarriers come first.
 constexpr int HEAD_BYTES = 1024 + 1024;
-__host__ __device__ inline int ring_bytes(bool q_resident, int stages) {
+// qps: Q slices per Y slice (2 for f32 Q with bf16 Y, else 1).
+__host__ __device__ inline int ring_bytes(bool q_resident, int stages,
+                                          int qps = 1) {
   return HEAD_BYTES +
-         stages * (Y_SLICE_BYTES + (q_resident ? 0 : Q_SLICE_BYTES));
+         stages * (Y_SLICE_BYTES + (q_resident ? 0 : qps * Q_SLICE_BYTES));
 }
 __host__ __device__ inline int q_bytes(bool q_resident, int slices) {
   return q_resident ? slices * Q_SLICE_BYTES : 0;
 }
-// The ring of one launch beside `fixed` more bytes: the Q tile resident if
-// a ring of MIN_STAGES fits beside it, and as many stages (up to
-// MAX_STAGES) as fit. Returns the dynamic shared memory, or 0 if nothing
-// fits.
+// The ring of one launch beside `fixed` more bytes: the Q tile (`slices`
+// Q slices) resident if a ring of MIN_STAGES fits beside it, and as many
+// stages (up to MAX_STAGES) as fit. Returns the dynamic shared memory, or 0
+// if nothing fits.
 inline int plan_ring(int max_smem, int slices, int fixed, bool& q_resident,
-                     int& stages) {
+                     int& stages, int qps = 1) {
   for (int res = 1; res >= 0; --res) {
-    const int room = max_smem - ring_bytes(res, 0) - q_bytes(res, slices) -
-                     fixed;
-    const int n = room / (ring_bytes(res, 1) - ring_bytes(res, 0));
+    const int room = max_smem - ring_bytes(res, 0, qps) -
+                     q_bytes(res, slices) - fixed;
+    const int n = room / (ring_bytes(res, 1, qps) - ring_bytes(res, 0, qps));
     if (n >= MIN_STAGES) {
       q_resident = res;
       stages = n < MAX_STAGES ? n : MAX_STAGES;
-      return ring_bytes(res, stages) + q_bytes(res, slices) + fixed;
+      return ring_bytes(res, stages, qps) + q_bytes(res, slices) + fixed;
     }
   }
   return 0;
@@ -375,6 +385,82 @@ __device__ __forceinline__ void slice_mma(Frag& f, const char* qs,
   }
 }
 
+// One 128-byte Y slice of f32 Q against bf16 Y: qs holds the two Q slices
+// of the same 64 columns, Q_SLICE_BYTES apart. Lane (g, tq) owns columns
+// 16 tq .. 16 tq + 15: Y's chunks 2 tq, 2 tq + 1 (word w = columns 16 tq +
+// 2w, 2w + 1), Q's in slice tq / 2 at chunks 4 (tq & 1) .. + 3, taken as
+// two halves of four k-steps; k-step s of half hh pairs column 16 tq + 8 hh
+// + 2 s with k = tq and the next column with k = tq + 4, in A and in B.
+// Y widened is exact in TF32 (lo = 0), so each k-step is lo*hi + hi*hi.
+__device__ __forceinline__ void slice_mma_mixed(Frag& f, const char* qs,
+                                                const char* ys, bool norms,
+                                                int wm, int wn, int g,
+                                                int tq) {
+  uint32_t b[4][8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) load_row(b[j], ys, 32 * wn + 8 * j + g, tq);
+  if (norms) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const float v0 = __uint_as_float(b[j][w] << 16);
+        const float v1 = __uint_as_float(b[j][w] & 0xffff0000u);
+        f.yn[j] = fmaf(v0, v0, f.yn[j]);
+        f.yn[j] = fmaf(v1, v1, f.yn[j]);
+      }
+  }
+  const char* qsl = qs + (tq >> 1) * Q_SLICE_BYTES;
+  const int c0 = 4 * (tq & 1);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    uint32_t a[2][2][8];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * wm + 16 * mi + 8 * h + g;
+        const uint4 lo =
+            *reinterpret_cast<const uint4*>(qsl + swz(r, c0 + 2 * hh));
+        const uint4 hi =
+            *reinterpret_cast<const uint4*>(qsl + swz(r, c0 + 2 * hh + 1));
+        uint32_t(&w)[8] = a[mi][h];
+        w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+        w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+      }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t ah[2][4], al[2][4], bh[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        split_tf32(a[mi][0][2 * s], ah[mi][0], al[mi][0]);
+        split_tf32(a[mi][1][2 * s], ah[mi][1], al[mi][1]);
+        split_tf32(a[mi][0][2 * s + 1], ah[mi][2], al[mi][2]);
+        split_tf32(a[mi][1][2 * s + 1], ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t w = b[j][4 * hh + s];
+        bh[j][0] = w << 16;
+        bh[j][1] = w & 0xffff0000u;
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (hh == 0 && s == 0)
+            mma_tf32_0(f.acc[mi][j], al[mi], bh[j][0], bh[j][1]);
+          else
+            mma_tf32(f.acc[mi][j], al[mi], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(f.acc[mi][j], ah[mi], bh[j][0], bh[j][1]);
+    }
+  }
+}
+
 // |q|^2 of the block's query rows into qq[BQ] (threads 0..BQ-1; the caller
 // synchronises before reading it).
 template <typename T>
@@ -401,20 +487,21 @@ struct Ring {
   char* ring;
   char* qres;
   int stages;
+  int qps;   // Q slices per Y slice
 
-  __device__ Ring(char* smem, int slices, bool q_resident, int n)
-      : stages(n) {
+  __device__ Ring(char* smem, int slices, bool q_resident, int n, int qps = 1)
+      : stages(n), qps(qps) {
     char* base = reinterpret_cast<char*>(
         (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
     full = reinterpret_cast<uint64_t*>(base);
     empty = full + MAX_STAGES;
     qbar = empty + MAX_STAGES;
     ring = base + 1024;
-    qres = ring + ring_bytes(q_resident, stages) - HEAD_BYTES;
+    qres = ring + ring_bytes(q_resident, stages, qps) - HEAD_BYTES;
   }
   // The bytes past the ring and the Q tile.
   __device__ char* rest(char* smem, int slices, bool q_resident) const {
-    return smem + ring_bytes(q_resident, stages) +
+    return smem + ring_bytes(q_resident, stages, qps) +
            q_bytes(q_resident, slices);
   }
   // Thread 0, before the block barrier that precedes run().
@@ -430,18 +517,23 @@ struct Ring {
 };
 
 // Walk tiles [t_begin, t_end) of Y for the query tile at q0, calling
-// epi(t, frag) with each tile's finished accumulators. Every thread of the
-// block calls this, after a block barrier that follows R.init().
-template <typename T, typename Epi>
+// epi(t, frag) with each tile's finished accumulators. d is Y's row length
+// in elements of T; Q's elements are TQ (T, or float with a bf16 Y, whose
+// Q the caller pads to 2 S slices). Every thread of the block calls this,
+// after a block barrier that follows R.init().
+template <typename T, typename TQ = T, typename Epi>
 __device__ __forceinline__ void run(const CUtensorMap* mapQ,
                                     const CUtensorMap* mapY, int d, int q0,
                                     int t_begin, int t_end, bool q_resident,
                                     bool norms, const Ring& R, Epi& epi) {
+  constexpr bool MIXED = sizeof(TQ) != sizeof(T);
+  constexpr int QPS = (int)(sizeof(TQ) / sizeof(T));   // Q slices a slice
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
   const int S = (d * (int)sizeof(T) + ROW_BYTES - 1) / ROW_BYTES;
-  const int per_slice = ROW_BYTES / (int)sizeof(T);   // elements
-  const int stage = Y_SLICE_BYTES + (q_resident ? 0 : Q_SLICE_BYTES);
+  const int per_slice = ROW_BYTES / (int)sizeof(T);    // Y elements
+  const int q_per_slice = ROW_BYTES / (int)sizeof(TQ);  // Q elements
+  const int stage = Y_SLICE_BYTES + (q_resident ? 0 : QPS * Q_SLICE_BYTES);
   const int total = (t_end - t_begin) * S;
 
   // Thread 0 loads slice j into its stage once all warps released it.
@@ -453,13 +545,16 @@ __device__ __forceinline__ void run(const CUtensorMap* mapQ,
     mbar_expect_tx(R.full + st, stage);
     tma_load(dst, mapY, s * per_slice, t * BN, R.full + st);
     if (!q_resident)
-      tma_load(dst + Y_SLICE_BYTES, mapQ, s * per_slice, q0, R.full + st);
+      for (int u = 0; u < QPS; ++u)
+        tma_load(dst + Y_SLICE_BYTES + u * Q_SLICE_BYTES, mapQ,
+                 (s * QPS + u) * q_per_slice, q0, R.full + st);
   };
   if (tid == 0) {
     if (q_resident) {
-      mbar_expect_tx(R.qbar, S * Q_SLICE_BYTES);
-      for (int s = 0; s < S; ++s)
-        tma_load(R.qres + s * Q_SLICE_BYTES, mapQ, s * per_slice, q0, R.qbar);
+      mbar_expect_tx(R.qbar, S * QPS * Q_SLICE_BYTES);
+      for (int s = 0; s < S * QPS; ++s)
+        tma_load(R.qres + s * Q_SLICE_BYTES, mapQ, s * q_per_slice, q0,
+                 R.qbar);
     }
     for (int j = 0; j < stages - 2 && j < total; ++j) produce(j);
   }
@@ -471,9 +566,12 @@ __device__ __forceinline__ void run(const CUtensorMap* mapQ,
     mbar_wait(R.full + st, (i / stages) & 1);
     const char* ys = R.ring + st * stage;
     if (s == 0) f.zero();
-    slice_mma<T>(f, q_resident ? R.qres + s * Q_SLICE_BYTES
-                               : ys + Y_SLICE_BYTES,
-                 ys, norms, wm, wn, g, tq);
+    const char* qs =
+        q_resident ? R.qres + s * QPS * Q_SLICE_BYTES : ys + Y_SLICE_BYTES;
+    if constexpr (MIXED)
+      slice_mma_mixed(f, qs, ys, norms, wm, wn, g, tq);
+    else
+      slice_mma<T>(f, qs, ys, norms, wm, wn, g, tq);
     __syncwarp();   // every lane's fragments are in registers (the mma read
     if (lane == 0) mbar_arrive(R.empty + st);   // them): the stage is free
     if (tid == 0 && i + stages - 2 < total) produce(i + stages - 2);

@@ -18,6 +18,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.embed_bag_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
     lib.embed_bag_launch.restype = i
+    lib.embed_bag_layout.argtypes = [i, i, i]
+    lib.embed_bag_layout.restype = i
 
 
 LIBRARY = Library("embed_bag",
@@ -45,9 +47,7 @@ def embed_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     if max(V, D, B, L) >= 2 ** 31:
         raise ValueError(f"embed_bag kernel shape out of range: table "
                          f"{V} x {D}, indices {B} x {L}")
-    # 4 columns a lane needs D % 4 == 0 and a table aligned to 4 elements
-    vec = 4 if D % 4 == 0 and table.data_ptr() % (4 * table.element_size()) \
-        == 0 else 1
+    vec = int(vector_loads(table))
     out = torch.empty((B, D), dtype=torch.float32, device=table.device)
     lib = LIBRARY.get()
     with torch.cuda.device(table.device):
@@ -58,3 +58,22 @@ def embed_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
                                    stream)
     check_launch("embed_bag", err)
     return out
+
+
+def vector_loads(table: torch.Tensor) -> bool:
+    """Whether the kernel may load 16 bytes a lane (4 f32 or 8 bf16 values,
+    its widest load): rows a multiple of 16 bytes and a 16-byte aligned
+    table. Otherwise it loads one value a lane."""
+    return (table.shape[1] * table.element_size()) % 16 == 0 \
+        and table.data_ptr() % 16 == 0
+
+
+def lane_layout(table: torch.Tensor) -> dict:
+    """The lane-group layout the kernel takes for ``table``: values a lane
+    loads, lanes a group (one row each), rows a load instruction."""
+    code = LIBRARY.get().embed_bag_layout(table.shape[1],
+                                          _DTYPES[table.dtype],
+                                          int(vector_loads(table)))
+    vpl, g = divmod(code, 64)
+    return {"values_per_lane": vpl, "lanes_per_row": g,
+            "rows_per_load": 32 // g}

@@ -11,10 +11,9 @@ viewed as ``torch.bfloat16`` again, unchanged.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..core.common import resolve_device
+from ..core.common import tensor_from_host
 from . import recsys, transformer
 from ._params import Leaf, tree_map
 
@@ -22,14 +21,7 @@ from ._params import Leaf, tree_map
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """A numpy array (``ml_dtypes.bfloat16`` included) as a tensor on
     ``device``, bit for bit."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:          # torch tensors are always writable
-        a = a.copy()
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(resolve_device(device))
+    return tensor_from_host(a, device)
 
 
 def _carry(spec, tree, device):

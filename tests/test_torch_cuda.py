@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.embed_bag import embed_bag, embed_bag_ref
+from repro_torch.kernels.embed_bag.embed_bag import lane_layout, vector_loads
 from repro_torch.kernels.l2dist import l2dist, l2dist_ref
 from repro_torch.kernels.topk_dist import topk_dist, topk_dist_ref
 
@@ -71,6 +72,102 @@ def test_topk_dist_kernel_pads_and_counts(cuda):
     assert set(iv[0, :3].tolist()) == {3, 77, 250}
     d0, i0 = topk_dist(Q[:0], Y, 8)
     assert d0.shape == (0, 8) and i0.shape == (0, 8)
+
+
+def _ordered(dv, iv):
+    """Every row strictly ascending by (distance, id) up to its padding."""
+    d, i = dv.cpu().numpy(), iv.cpu().numpy()
+    for r in range(d.shape[0]):
+        fin = int(np.isfinite(d[r]).sum())
+        assert np.isinf(d[r, fin:]).all() and (i[r, fin:] == -1).all(), r
+        assert all((d[r, a], i[r, a]) < (d[r, a + 1], i[r, a + 1])
+                   for a in range(fin - 1)), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qdt,ydt", [(torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["f32-bf16", "bf16-bf16", "f32-f32"])
+def test_topk_dist_kernel_takes_bf16_and_any_k(cuda, metric, qdt, ydt):
+    """The exact tier takes what the reference's kernel takes: a bf16 index
+    (read as bf16, with f32 or bf16 queries) and any k, up to past N. The
+    plain version widens both to f32, as the reference does; a bf16 value
+    widens exactly, so only the order of the f32 sums differs. Duplicate
+    rows make exact ties, which go to the lowest id in both routes (k <=
+    128 streams; k > 128 forms distance rows and radix-selects)."""
+    rng = np.random.default_rng(17)
+    base = _rand(rng, 700, 72, device=cuda)
+    Y = torch.cat([base, base[:100], base]).to(ydt)     # 1,500 rows, ties
+    n = Y.shape[0]
+    Q = (base[:70] + 0.5 * _rand(rng, 70, 72, device=cuda)).to(qdt)
+    mask = torch.tensor(rng.random(n) > 0.3, device=cuda)
+    for k in (1, 10, 128, 129, 1000, n, n + 5):
+        for m in (None, mask):
+            before = topk_dist.launches
+            dv, iv = topk_dist(Q, Y, k, metric=metric, mask=m)
+            torch.cuda.synchronize()
+            assert topk_dist.launches == before + 1
+            dr, ir = topk_dist_ref(Q, Y, k, metric=metric, mask=m)
+            assert dv.shape == (70, k) and iv.dtype == torch.int32
+            _check(dv, iv, dr, ir)
+            _ordered(dv, iv)
+            eligible = n if m is None else int(m.sum())
+            assert bool((iv[:, min(k, eligible):] == -1).all()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 64, 72, 136])
+@pytest.mark.parametrize("n", [1, 127, 129, 4099])
+def test_topk_dist_kernel_bf16_at_the_edges(cuda, d, n):
+    """A bf16 index across the 128-byte slices (64 values: Q padded to two
+    f32 slices each) and the 128-row tiles, nq across the 64-query
+    blocks, k on both routes."""
+    rng = np.random.default_rng(d * 100_000 + n)
+    Y = _rand(rng, n, d, device=cuda).to(torch.bfloat16)
+    mask = torch.tensor(rng.random(n) > 0.3, device=cuda)
+    for nq in (1, 65):
+        Q = _rand(rng, nq, d, device=cuda)
+        for k, metric, m in ((1, "l2", None), (10, "ip", mask),
+                             (128, "l2", mask), (200, "ip", None),
+                             (n + 1, "l2", mask)):
+            dv, iv = topk_dist(Q, Y, k, metric=metric, mask=m)
+            torch.cuda.synchronize()
+            dr, ir = topk_dist_ref(Q, Y, k, metric=metric, mask=m)
+            _check(dv, iv, dr, ir)
+            _ordered(dv, iv)
+
+
+@pytest.mark.gpu
+def test_topk_dist_kernel_makes_no_f32_copy_of_a_bf16_index(cuda):
+    """A bf16 index of 2^20 x 128 (256 MiB) is read as it is: a call
+    allocates its outputs and a small f32 copy of the queries, never the
+    512 MiB of an f32 index; the large-k route stays within its 256 MiB
+    chunk of distance rows and sort buffers."""
+    rng = np.random.default_rng(18)
+    Y = torch.randn(1 << 20, 128, device=cuda).to(torch.bfloat16)
+    Q = _rand(rng, 64, 128, device=cuda)
+    torch.cuda.synchronize()
+    for k, limit in ((10, 16 << 20), (300, (256 + 16) << 20)):
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        dv, iv = topk_dist(Q, Y, k)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(cuda) - base < limit, k
+        dr, ir = topk_dist_ref(Q[:4], Y, k)
+        _check(dv[:4], iv[:4], dr, ir)
+
+
+@pytest.mark.gpu
+def test_topk_dist_kernel_refuses_other_dtypes(cuda):
+    Q = torch.randn(4, 16, device=cuda)
+    Y = torch.randn(40, 16, device=cuda)
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match=str(bad).split(".")[-1]):
+            topk_dist(Q, Y.to(bad), 5)
+        with pytest.raises(TypeError, match=str(bad).split(".")[-1]):
+            topk_dist(Q.to(bad), Y, 5)
 
 
 def _rand(rng, *shape, device, scale=1.0):
@@ -238,3 +335,60 @@ def test_wide_deep_forward_on_the_kernel_matches_the_plain_bag(cuda, smoke):
     assert embed_bag.launches == before + 1
     torch.testing.assert_close(logit, rl, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(user, ru, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 32, 33, 70])
+@pytest.mark.parametrize("d", [7, 8, 16, 32, 64, 128, 260])
+def test_embed_bag_kernel_lane_groups(cuda, d, l, dtype):
+    """The redesigned kernel at every lane-group layout: D from one value a
+    lane (D = 7) through 2-32 lanes a row to several column passes (D =
+    260), bags within, at and past one 32-id chunk; an all-padding bag and
+    ids at or past V contribute nothing; two runs give the same bits."""
+    v, b = 3000, 37
+    rng = np.random.default_rng(d * 100 + l)
+    tab = torch.tensor(rng.normal(size=(v, d)), dtype=dtype, device=cuda)
+    idx = rng.integers(-1, v + 50, size=(b, l)).astype(np.int32)
+    idx[0] = -1
+    idx[1] = v + 7
+    idx = torch.tensor(idx, device=cuda)
+    lay = lane_layout(tab)
+    per = 16 // tab.element_size()
+    assert lay["values_per_lane"] == (per if d % per == 0 else 1)
+    assert lay["lanes_per_row"] * lay["rows_per_load"] == 32
+    for mode in ("sum", "mean"):
+        out = embed_bag(tab, idx, mode)
+        again = embed_bag(tab, idx, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = embed_bag_ref(tab, idx, mode)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        assert bool((out[:2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 32, 128])
+def test_embed_bag_kernel_unaligned_table_view(cuda, d, dtype):
+    """A contiguous table view that starts one value into its storage is
+    not 16-byte aligned: the launcher takes one value a lane, and the
+    answer is the same function."""
+    v = 500
+    rng = np.random.default_rng(d)
+    flat = torch.tensor(rng.normal(size=v * d + 1), dtype=dtype, device=cuda)
+    tab = flat[1:].view(v, d)
+    assert tab.is_contiguous() and not vector_loads(tab)
+    assert vector_loads(flat[:-1].view(v, d))
+    idx = torch.tensor(rng.integers(-1, v, size=(64, 32)).astype(np.int32),
+                       device=cuda)
+    for mode in ("sum", "mean"):
+        out = embed_bag(tab, idx, mode)
+        ref = embed_bag_ref(tab, idx, mode)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            embed_bag(flat[:-1].view(v, d).clone().copy_(tab), idx,
+                      mode).cpu().numpy(), rtol=1e-5, atol=1e-5)

@@ -17,6 +17,7 @@ from repro.kernels.embed_bag.ref import embed_bag_ref as j_embed_bag_ref
 
 from repro_torch.kernels import embed_bag
 from repro_torch.kernels.embed_bag import embed_bag_ref
+from repro_torch.kernels.embed_bag.embed_bag import vector_loads
 
 TOL = 1e-4
 SHAPES = [(100, 8, 7, 4), (1000, 32, 37, 12), (513, 16, 8, 1),
@@ -95,3 +96,36 @@ def test_cpu_calls_never_count_and_wrapper_checks():
     meta = torch.empty((5, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         embed_bag(meta, torch.empty((2, 3), dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.float32, 4, True), (torch.float32, 6, False),
+    (torch.float32, 260, True), (torch.bfloat16, 4, False),
+    (torch.bfloat16, 8, True), (torch.bfloat16, 260, False),
+    (torch.bfloat16, 32, True)])
+def test_vector_loads_follow_the_widest_load(dtype, d, ok):
+    """The kernel's widest load is 16 bytes a lane (4 f32, 8 bf16 values):
+    a table takes it when its rows are a multiple of 16 bytes and it is
+    16-byte aligned; a view one value into its storage is not."""
+    flat = torch.zeros(64 * d + 1, dtype=dtype)
+    assert vector_loads(flat[:-1].view(64, d)) == ok
+    assert not vector_loads(flat[1:].view(64, d))
+
+
+def test_variant_tool_patches_the_kernel_source():
+    """``tools/embed_bag_variants.py`` times copies of the kernel's source
+    with one change each (PERF.md's cache-policy, loads-in-flight and
+    vocabulary-slab numbers): every change finds its anchor in the source
+    as it is, and changes it."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "embed_bag_variants.py"
+    spec = importlib.util.spec_from_file_location("embed_bag_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.SRC.read_text()
+    out = tool.variants(src)
+    assert out.pop("as_is") == src
+    assert len(out) == 8 and all(v != src for v in out.values())
+    assert "embed_bag_set_slabs" in out["slabs"]

@@ -9,7 +9,10 @@ from repro.kernels import topk_dist as j_topk
 from repro.kernels.topk_dist.ref import topk_dist_ref as j_topk_ref
 
 from repro_torch.kernels.topk_dist import topk_dist, topk_dist_ref
-from repro_torch.kernels.topk_dist.topk_dist import LIBRARY, topk_dist_cuda
+from repro_torch.kernels.topk_dist.topk_dist import (LARGE_K_SCRATCH,
+                                                     LIBRARY, MAX_K,
+                                                     large_k_chunk, operands,
+                                                     topk_dist_cuda)
 
 TOL = 1e-4   # f32 distances; the libraries sum in different orders
 
@@ -119,3 +122,67 @@ def test_wrapper_rejects_bad_inputs(bad):
         (args if key in args else kw)[key] = v
     with pytest.raises(ValueError):
         topk_dist(args["Q"], args["Y"], args["k"], **kw)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k", [10, MAX_K + 1, 1000])
+@pytest.mark.parametrize("qdt", ["float32", "bfloat16"])
+def test_plain_takes_bf16_and_any_k_as_the_reference(qdt, k, metric):
+    """What the exact tier hands the kernel on a bf16 index: a bf16 Y (and
+    f32 or bf16 queries), any k, past the eligible rows too (the oracle's
+    ``lax.top_k`` takes k <= N). The reference's Pallas kernel
+    (interpret mode, at k = 10: it merges k rounds a tile, minutes at k =
+    1,000 on the CPU) and its jnp oracle widen both to f32; the plain
+    version does the same, so they agree as on f32 inputs."""
+    rng = np.random.default_rng(k)
+    X = jnp.asarray(rng.normal(size=(5, 24)), getattr(jnp, qdt))
+    Y = jnp.asarray(rng.normal(size=(1200, 24)), jnp.bfloat16)
+    mask = rng.random(1200) > 0.3
+    tX, tY = (torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+        getattr(torch, str(a.dtype))) for a in (X, Y))
+    dv, iv = topk_dist(tX, tY, k, metric=metric, mask=torch.from_numpy(mask))
+    for fn in (j_topk, j_topk_ref) if k <= 10 else (j_topk_ref,):
+        dr, ir = fn(X, Y, k, metric=metric, mask=jnp.asarray(mask))
+        _same_up_to_ties(dv.numpy(), iv.numpy(), np.asarray(dr),
+                         np.asarray(ir))
+    eligible = int(mask.sum())
+    assert (iv[:, eligible:] == -1).all()
+    assert torch.isinf(dv[:, eligible:]).all()
+
+
+@pytest.mark.parametrize("d", [7, 8, 64, 72, 128])
+def test_operands_read_a_bf16_index_as_it_is(d):
+    """The launcher's operands: an f32 Y pads its rows and Q's to 16 bytes;
+    a bf16 Y is handed over as it is when its rows are a multiple of 16
+    bytes and aligned (no f32 copy of the index), and Q is widened to f32
+    and zero-padded to a multiple of 64 columns (two f32 slices per bf16
+    slice)."""
+    Q = torch.randn(3, d)
+    for Y in (torch.randn(50, d), torch.randn(50, d).bfloat16()):
+        for q in (Q, Q.bfloat16()):
+            q2, y2, dd, dq = operands(q, Y)
+            assert q2.dtype == torch.float32 and y2.dtype == Y.dtype
+            assert dd == y2.shape[1] and dq == q2.shape[1]
+            per = 16 // Y.element_size()
+            assert dd == -(-d // per) * per and y2.data_ptr() % 16 == 0
+            assert dq == (dd if Y.dtype == torch.float32
+                          else -(-dd // 64) * 64)
+            assert torch.equal(q2[:, :d], q.float())
+            assert not q2[:, d:].any() and not y2[:, d:].float().any()
+            assert torch.equal(y2[:, :d], Y)
+            if dd == d:
+                assert y2.data_ptr() == Y.data_ptr()
+    with pytest.raises(TypeError, match="float16"):
+        operands(Q, torch.randn(5, d).half())
+    with pytest.raises(TypeError, match="float64"):
+        operands(Q.double(), torch.randn(5, d))
+
+
+def test_large_k_chunk_bounds_the_scratch():
+    for nq, N, kk in [(64, 1 << 20, 300), (1000, 65_536, 1000),
+                      (3, 100, 100), (5000, 8192, 8192)]:
+        ld = -(-N // 4) * 4
+        rows = large_k_chunk(nq, ld, kk)
+        assert 1 <= rows <= nq
+        assert rows * (4 * ld + 8 * kk) <= LARGE_K_SCRATCH
+        assert rows == nq or rows < 64 or rows % 64 == 0

@@ -10,6 +10,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 import repro.core.batch_update as jbu
 from repro.core import HNSWParams as JParams
@@ -45,6 +46,24 @@ def assert_same_index(ref_ix, port_ix, skip=("rng",)):
     for f in FIELDS:
         if f not in skip:
             np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def bf16_bits(a) -> np.ndarray:
+    """bf16 values as their 16 bits, from either package."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == torch.bfloat16 and a.element_size() == 2
+        return a.view(torch.int16).numpy().view(np.uint16)
+    a = np.asarray(a)
+    assert a.dtype.itemsize == 2
+    return a.view(np.uint16)
+
+
+def assert_same_bf16_index(ref_ix, port_ix):
+    """Both store bf16, the same bits, and every other array is equal."""
+    assert ref_ix.vectors.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(bf16_bits(port_ix.vectors),
+                                  bf16_bits(ref_ix.vectors))
+    assert_same_index(ref_ix, port_ix, skip=("rng", "vectors"))
 
 
 def _level_after_split(ix, params):
