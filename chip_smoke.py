@@ -61,7 +61,15 @@ Phases, each of which exits nonzero on failure:
      AutoInt and DIEN at 512 rows, and SASRec's retrieval over its
      1,000,448 padded items (held to a stable sort) and over the first
      131,072 items in an ``ip`` ``VectorIndex`` with 1% delisted and as
-     many new items listed (logged as a cut).
+     many new items listed (logged as a cut);
+  9. the training path at published widths: stablelm-1.6b takes 4 AdamW
+     steps of ``make_train_step(lm_loss)`` with remat at 2 x 4,096 tokens
+     (global batch cut from 256, logged), wide-deep 5 steps at its
+     ``train_batch`` of 65,536 rows with the bag on ``embed_bag`` (one
+     step's loss and every gradient held to the plain bag's; the bag's
+     forward and backward timed), then ``repro_torch.launch.train``
+     crashes at an injected step and resumes from its checkpoint (at the
+     smoke config, logged).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the reference.
@@ -1481,7 +1489,7 @@ def decode_check(cfg, params, dev, batch=8, prompt=64, steps=16, seed=11):
     import torch
     from repro_torch.data import lm_token_batch
     from repro_torch.models import transformer
-    from repro_torch.models._params import tree_map
+    from repro_torch._tree import tree_map
 
     S = prompt + steps
     toks = torch.from_numpy(lm_token_batch(cfg.vocab_size, batch, S - 1,
@@ -1714,6 +1722,415 @@ def substrate_phase(smoke=False, n_docs=None, catalogue=None, bulk=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training path
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    from repro_torch._tree import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def _free(dev):
+    import torch
+    _sync(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_bytes(dev):
+    import torch
+    return (torch.cuda.max_memory_allocated() if torch.device(dev).type
+            == "cuda" else None)
+
+
+def _run_steps(step_fn, params, state, batches, dev):
+    """Drive ``step_fn`` over ``batches`` (a function of the step); each
+    step's host seconds after a sync, loss and grad norm."""
+    out = {"s": [], "loss": [], "grad_norm": []}
+    for s in range(len(batches)):
+        batch = batches[s]()
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, met = step_fn(params, state, batch)
+        _sync(dev)
+        out["s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(met["loss"]))
+        out["grad_norm"].append(float(met["grad_norm"]))
+    return params, state, out
+
+
+def _check_trained(p0, p1, what):
+    """The reference test's check, per leaf: every leaf finite and
+    changed, except a leaf of zeros that stays zero (a bias the loss never
+    reads, such as a tower's ``user_proj``: no gradient, and weight decay
+    of zero is zero)."""
+    import torch
+    for (path, a), (_, b) in zip(_leaves(p0), _leaves(p1)):
+        check(bool(torch.isfinite(b.float()).all()),
+              f"{what}: leaf {path} not finite after training")
+        check(bool((a != b).any()) or not (bool(a.any()) or bool(b.any())),
+              f"{what}: leaf {path} never changed")
+
+
+def lm_train(cfg, steps=4, batch=2, seq=4096, seed=0, dev="cuda"):
+    """``steps`` AdamW steps of ``make_train_step(lm_loss)`` (remat on) on
+    seed-drawn weights: every loss finite, step 1's within 1.0 of ln V,
+    every leaf changed and finite."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.data import lm_token_batch
+    from repro_torch.models import get_api, make_train_step, transformer
+    from repro_torch.train import adamw_init
+
+    _free(dev)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(seed=seed, device=dev)
+    state = adamw_init(params)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(
+        lambda p, b: transformer.lm_loss(cfg, p, b["tokens"], remat=True),
+        api.opt_cfg)
+    batches = [lambda s=s: {"tokens": torch.from_numpy(lm_token_batch(
+        cfg.vocab_size, batch, seq, seed=s)).to(dev)} for s in range(steps)]
+    p1, state, out = _run_steps(step_fn, params, state, batches, dev)
+    check(all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]),
+          f"{cfg.name}: a loss or grad norm is not finite: {out}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(out["loss"][0] - ln_v) <= 1.0,
+          f"{cfg.name}: step 1's loss {out['loss'][0]:.4f} is not within 1.0 "
+          f"of ln V = {ln_v:.4f}")
+    _check_trained(params, p1, cfg.name)
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    warm = out["s"][1:] or out["s"]
+    # model FLOPs a step: forward, the remat recompute of every layer and
+    # CE chunk, and a backward of twice the forward; attention over every
+    # masked score, as ``_attn_core`` computes them
+    D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_padded
+    mm = L * (D * cfg.num_heads * cfg.head_dim * 2
+              + D * cfg.num_kv_heads * cfg.head_dim * 2
+              + 3 * D * cfg.d_ff) + D * V
+    attn = L * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    flops = 4 * (2 * mm * batch * seq + attn)
+    out.update({"arch": cfg.name, "params": n_params, "batch": batch,
+                "seq": seq, "init_s": init_s,
+                "s_per_step": float(np.mean(warm)),
+                "tokens_per_s": batch * seq / float(np.mean(warm)),
+                "model_tflop_per_step": flops / 1e12,
+                "peak_bytes": _peak_bytes(dev), "ln_v": ln_v})
+    out["tflop_per_s"] = out["model_tflop_per_step"] / out["s_per_step"]
+    log(f"train {cfg.name} ({n_params:,} params, bf16; batch {batch} x "
+        f"{seq}, remat): init {init_s:.1f} s; steps "
+        + ", ".join(f"{s:.3f}" for s in out["s"])
+        + f" s (step 1 warm-up); {out['s_per_step']:.4f} s/step, "
+        f"{out['tokens_per_s']:.0f} tokens/s, ~{out['model_tflop_per_step']:.1f}"
+        f" TFLOP a step ({out['tflop_per_s']:.1f} TFLOP/s); losses "
+        + ", ".join(f"{x:.4f}" for x in out["loss"])
+        + f" (ln V {ln_v:.4f}); grad norms "
+        + ", ".join(f"{x:.4f}" for x in out["grad_norm"])
+        + f"; peak {out['peak_bytes']} bytes; every leaf changed and finite")
+    del params, p1, state
+    _free(dev)
+    return out
+
+
+def _leaf_err(a, b):
+    """``max |a - b|`` over ``b``'s largest magnitude: a leaf held to its own
+    scale, so a leaf of small values (wide-deep's gradients are ~1e-7) is
+    not passed by an absolute tolerance alone."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def bag_gradient_check(table, ids, dev, seed=0):
+    """``EmbedBagFunction`` (the kernel forward, the scatter-add backward)
+    against autograd through ``embed_bag_ref`` at the training batch's
+    shape, with an O(1) output gradient: the output and the table's
+    gradient, each within ``TOL`` of its own largest magnitude. The check
+    must see a backward that returns zeros, scatters to the wrong rows or
+    means instead of summing: each is held to fail it. Calls the Function,
+    not the wrapper: a comparison, not counted."""
+    import torch
+    from repro_torch.kernels.embed_bag import (EmbedBagFunction,
+                                               embed_bag_backward_ref,
+                                               embed_bag_ref)
+    V = table.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gout = torch.randn((ids.shape[0], table.shape[1]), generator=gen,
+                       device=dev)
+    tk = table.detach().requires_grad_()
+    out_k = EmbedBagFunction.apply(tk, ids, "sum")
+    out_k.backward(gout)
+    tr = table.detach().requires_grad_()
+    out_r = embed_bag_ref(tr, ids, "sum")
+    out_r.backward(gout)
+    res = {"forward_rel_err": _leaf_err(out_k, out_r),
+           "backward_rel_err": _leaf_err(tk.grad, tr.grad)}
+    wrong = {"zeros": torch.zeros_like(tr.grad),
+             "rows_shifted": tr.grad.roll(1, 0),
+             "mean_not_sum": embed_bag_backward_ref(gout, ids, V, table.dtype,
+                                                    "mean")}
+    res["wrong_backward_rel_err"] = {k: _leaf_err(w, tr.grad)
+                                     for k, w in wrong.items()}
+    log(f"bag gradient ({ids.shape[0]} x {ids.shape[1]} ids over {V} x "
+        f"{table.shape[1]}, N(0, 1) output gradient): EmbedBagFunction vs "
+        f"autograd through embed_bag_ref, relative to each one's largest "
+        f"magnitude: forward {res['forward_rel_err']:.3g}, table gradient "
+        f"{res['backward_rel_err']:.3g} ({TOL} allowed); a wrong backward "
+        f"would be off by " + ", ".join(
+            f"{k} {v:.3g}" for k, v in res["wrong_backward_rel_err"].items()))
+    check(res["forward_rel_err"] <= TOL,
+          f"the bag kernel's forward vs the plain bag: "
+          f"{res['forward_rel_err']:.3g} relative")
+    check(res["backward_rel_err"] <= TOL,
+          f"EmbedBagFunction's table gradient vs autograd through the plain "
+          f"bag: {res['backward_rel_err']:.3g} relative")
+    for k, e in res["wrong_backward_rel_err"].items():
+        check(e > TOL, f"the bag gradient check cannot see a backward that "
+                       f"is wrong by {k} ({e:.3g} relative)")
+    return res
+
+
+def recsys_train(cfg, steps=5, batch=65_536, seed=0, dev="cuda"):
+    """wide-deep: one step's loss and every gradient leaf with the bag on
+    the kernel (``EmbedBagFunction``) held to the same step with the plain
+    bag pinned to the kernel's values, each leaf within ``TOL`` of its own
+    largest magnitude, and the loss with the plain bag's own; the bag's
+    Function alone against the plain bag's autograd at the batch's shape
+    (``bag_gradient_check``); its forward and backward timed alone (CUDA
+    events) beside the backward's bound; then ``steps`` AdamW steps through
+    the kernel (the launches the caller counts)."""
+    import math
+    import numpy as np
+    import torch
+    from functools import partial
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels.embed_bag import (EmbedBagFunction, embed_bag,
+                                               embed_bag_backward_ref,
+                                               embed_bag_ref)
+    from repro_torch.models import (get_api, make_train_step, recsys,
+                                    value_and_grad)
+    from repro_torch.train import adamw_init
+    from repro_torch.train.checkpoint import keystr
+
+    _free(dev)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(seed=seed, device=dev)
+    state = adamw_init(params)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    b0 = recsys.batch_to(recsys_batch(cfg, batch, seed=0), dev)
+    out = {"arch": cfg.name, "batch": batch, "init_s": init_s}
+
+    # the kernel's step against the plain bag's (not counted: a
+    # comparison). Left to its own f32 sums, the plain bag flips the few
+    # ReLUs whose input lies within that rounding of zero, and a flipped
+    # unit moves one row's gradient by percents: so the plain bag is also
+    # run pinned to the kernel's output values, bit for bit (k + (r - r),
+    # r - r being exactly 0), with its own autograd, and every leaf of that
+    # step is held to the kernel's; the unpinned step's loss is held, its
+    # leaves and flips reported
+    def pinned_bag(t, i, mode):
+        r = embed_bag_ref(t, i, mode)
+        return embed_bag(t.detach(), i, mode) + (r - r.detach())
+
+    launches0 = embed_bag.launches
+    (lk, _), gk = value_and_grad(partial(recsys.loss_fn, cfg), params, b0)
+    on_card = torch.device(dev).type == "cuda"
+    check(embed_bag.launches - launches0 == int(on_card),
+          "wide-deep's gradient step did not launch embed_bag")
+    (lp, _), gp = value_and_grad(partial(recsys.loss_fn, cfg,
+                                         bag=pinned_bag), params, b0)
+    out["loss_rel_err_vs_pinned_plain_bag"] = e = (
+        abs(float(lk) - float(lp)) / max(abs(float(lp)), 1e-30))
+    check(e <= TOL, f"wide-deep loss with the kernel bag {float(lk)} vs "
+                    f"the pinned plain bag {float(lp)}")
+    leaf_err = {}
+    for (path, a), (_, b) in zip(_leaves(gk), _leaves(gp)):
+        e = leaf_err[keystr(path)] = _leaf_err(a, b)
+        check(e <= TOL, f"wide-deep gradient {path}: kernel bag vs pinned "
+                        f"plain bag {e:.3g} of its largest magnitude")
+    del gp
+    out["grad_rel_err_vs_pinned_plain_bag"] = leaf_err
+    err = max(leaf_err.values())
+    out["max_rel_err_vs_pinned_plain_bag"] = err
+    (lr_, _), gr = value_and_grad(partial(recsys.loss_fn, cfg,
+                                          bag=embed_bag_ref), params, b0)
+    out["loss_rel_err_vs_plain_bag"] = loss_err = (
+        abs(float(lk) - float(lr_)) / max(abs(float(lr_)), 1e-30))
+    check(loss_err <= TOL, f"wide-deep loss with the kernel bag {float(lk)} "
+                           f"vs the plain bag {float(lr_)}")
+    out["grad_rel_err_vs_plain_bag"] = {
+        keystr(path): _leaf_err(a, b)
+        for (path, a), (_, b) in zip(_leaves(gk), _leaves(gr))}
+    del gr
+    with torch.no_grad():
+        emb = params["tables"][torch.arange(cfg.n_sparse, device=dev)[None, :],
+                               b0["sparse_ids"].long()].flatten(1)
+        w1 = params["mlp"][0]
+        pre = [recsys._apply(w1, torch.cat([emb, bag(
+            params["bag_table"], b0["bag_ids"], "sum")], dim=-1)) > 0
+            for bag in (embed_bag, embed_bag_ref)]
+        out["first_layer_relu_flips"] = int((pre[0] != pre[1]).sum())
+        del emb, pre
+    embed_bag.launches = launches0      # comparisons: not the path's
+    rows_hit = int((gk["bag_table"].abs().sum(1) > 0).sum())
+    del gk
+    _free(dev)
+
+    # the bag alone: the Function against the plain bag's autograd, then
+    # forward (the kernel) and backward (the scatter-add) timed
+    table, ids = params["bag_table"], b0["bag_ids"]
+    V, Dm = table.shape
+    if on_card:
+        out["bag_check"] = bag_gradient_check(table, ids, dev, seed)
+        _free(dev)
+        gout = torch.randn((batch, Dm), device=dev)
+        # the Function itself: the wrapper's count is the path's alone
+        fwd_ms = events_ms(lambda: EmbedBagFunction.apply(
+            table.detach().requires_grad_(), ids, "sum"), 20)
+        bwd_ms = events_ms(lambda: embed_bag_backward_ref(
+            gout, ids, V, table.dtype, "sum"), 20)
+        valid = ids[ids >= 0]
+        distinct = int(torch.unique(valid).numel())
+        # the least the backward must move: the output gradient and the ids
+        # read once, the dense [V, D] gradient written once; its adds are
+        # B * L * D f32 operations
+        need = (gout.numel() * 4 + ids.numel() * ids.element_size()
+                + V * Dm * table.element_size())
+        bound = max(need / PEAK_BYTES, valid.numel() * Dm / PEAK_F32_FLOPS) * 1e3
+        out["bag"] = {"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                      "backward_bound_ms": bound, "backward_bytes": need,
+                      # a sparse model beside it: the output gradient read
+                      # once, each touched row read and written once
+                      "backward_rmw_model_ms": (gout.numel() * 4 + 2 * distinct
+                                                * Dm * 4) / PEAK_BYTES * 1e3,
+                      "dense_grad_write_ms": V * Dm * 4 / PEAK_BYTES * 1e3,
+                      "valid_ids": int(valid.numel()),
+                      "distinct_rows": distinct, "rows_hit": rows_hit}
+        del gout
+
+    # the path: AdamW steps, the bag on the kernel
+    step_fn = make_train_step(partial(recsys.loss_fn, cfg), api.opt_cfg)
+    batches = [lambda: b0] + [
+        lambda s=s: recsys.batch_to(recsys_batch(cfg, batch, seed=s), dev)
+        for s in range(1, steps)]
+    launches0 = embed_bag.launches
+    p1, state, run = _run_steps(step_fn, params, state, batches, dev)
+    out["launches"] = embed_bag.launches - launches0
+    check(out["launches"] == steps * int(on_card),
+          f"wide-deep's {steps} steps launched embed_bag "
+          f"{out['launches']} times")
+    out.update(run)
+    check(all(math.isfinite(x) for x in run["loss"] + run["grad_norm"]),
+          f"wide-deep: a loss or grad norm is not finite: {run}")
+    _check_trained(params, p1, cfg.name)
+    warm = run["s"][1:] or run["s"]
+    out.update({"s_per_step": float(np.mean(warm)),
+                "rows_per_s": batch / float(np.mean(warm)),
+                "peak_bytes": _peak_bytes(dev),
+                "params": sum(p.numel() for _, p in _leaves(params))})
+    bag = out.get("bag")
+    log(f"train {cfg.name} ({out['params']:,} params, f32; batch {batch}): "
+        f"init {init_s:.1f} s; kernel bag vs the plain bag pinned to its "
+        f"values: loss {out['loss_rel_err_vs_pinned_plain_bag']:.3g} "
+        f"relative, every gradient leaf within {TOL} of its own largest "
+        f"magnitude (largest {err:.3g}); vs the plain bag's own "
+        f"sums: loss {out['loss_rel_err_vs_plain_bag']:.3g} relative, "
+        f"{out['first_layer_relu_flips']} first-layer ReLUs flipped, leaves "
+        f"up to {max(out['grad_rel_err_vs_plain_bag'].values()):.3g} of "
+        f"their largest; steps "
+        + ", ".join(f"{s:.4f}" for s in run["s"])
+        + f" s; {out['s_per_step']:.4f} s/step, {out['rows_per_s']:.0f} "
+        f"rows/s; losses " + ", ".join(f"{x:.4f}" for x in run["loss"])
+        + f"; peak {out['peak_bytes']} bytes"
+        + (f"; bag forward {bag['forward_ms']:.4f} ms, backward "
+           f"{bag['backward_ms']:.4f} ms (bound {bag['backward_bound_ms']:.4f}"
+           f" ms: {bag['backward_bytes']} bytes read and written; touched "
+           f"rows read-modify-written instead, {bag['distinct_rows']} of them"
+           f": {bag['backward_rmw_model_ms']:.4f} ms)"
+           if bag else ""))
+    del params, p1, state, b0
+    _free(dev)
+    return out
+
+
+def cli_train(dev="cuda", seed=0):
+    """``python -m repro_torch.launch.train`` at the reference test's flags
+    (``tests/test_system.py``): a crash injected at step 25, the checkpoint
+    of step 20 restored through the port's manager equal to its npz, then
+    ``--resume`` from step 20."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.train import CheckpointManager, adamw_init, compress_init
+    from repro_torch.train.checkpoint import keystr
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+                str(dev), "--arch", "stablelm-1.6b", "--steps", "30",
+                "--batch", "2", "--seq", "32", "--ckpt-dir", ckpt,
+                "--ckpt-every", "10", "--log-every", "10"]
+        t0 = time.perf_counter()
+        r = subprocess.run(base + ["--fail-at-step", "25"], env=env,
+                           capture_output=True, text=True, timeout=300)
+        out["crash_s"] = time.perf_counter() - t0
+        check(r.returncode != 0 and "injected failure" in r.stderr,
+              f"the trainer did not fail at the injected step:\n{r.stdout}\n"
+              f"{r.stderr[-2000:]}")
+        mgr = CheckpointManager(ckpt)
+        check(mgr.all_steps() == [10, 20],
+              f"checkpoints after the crash: {mgr.all_steps()}")
+        cfg = get_smoke_config("stablelm-1.6b")
+        params = transformer.init_params(cfg, seed=seed, device=dev)
+        like = {"params": params, "opt": adamw_init(params),
+                "ef": compress_init(params)}
+        state, meta = mgr.restore(like)
+        check(meta["step"] == 20, f"restored step {meta['step']}")
+        with np.load(os.path.join(ckpt, "ckpt_0000000020", "state.npz")) as z:
+            for path, t in _leaves(state):
+                a = z[keystr(path)]
+                check(t.device.type == torch.device(dev).type
+                      and np.array_equal(t.float().cpu().numpy(),
+                                         a.astype(np.float32)),
+                      f"restored leaf {path} differs from the saved one")
+        t0 = time.perf_counter()
+        r2 = subprocess.run(base + ["--resume"], env=env,
+                            capture_output=True, text=True, timeout=300)
+        out["resume_s"] = time.perf_counter() - t0
+        check(r2.returncode == 0 and "resumed from step 20" in r2.stdout,
+              f"the trainer did not resume from step 20:\n{r2.stdout}\n"
+              f"{r2.stderr[-2000:]}")
+        out["resume_log"] = r2.stdout.strip().splitlines()
+    log(f"trainer CLI: injected failure at step 25 ({out['crash_s']:.1f} s), "
+        f"step 20's checkpoint restored equal to its npz, resumed from step "
+        f"20 ({out['resume_s']:.1f} s): {out['resume_log'][-1]}")
+    return out
+
+
+def train_phase(smoke=False, dev="cuda"):
+    """Phase 9: stablelm-1.6b (4 steps at 2 x 4,096, remat) and wide-deep
+    (5 steps at 65,536 rows, the bag on ``embed_bag``) at their published
+    widths, then the trainer's CLI crash and resume (``smoke=True``: the
+    reduced configs at 2 x 512 and 2,048 rows, a CPU rehearsal)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    get = get_smoke_config if smoke else get_config
+    seq, rows = (512, 2048) if smoke else (4096, 65_536)
+    return {"lm": lm_train(get("stablelm-1.6b"), seq=seq, dev=dev),
+            "recsys": recsys_train(get("wide_deep"), batch=rows, dev=dev),
+            "cli": cli_train(dev=dev)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -1817,12 +2234,31 @@ def main(argv=None) -> int:
     topk_dist.launches = Live.truth_launches = 0
     results["8_substrate"] = timed("8_substrate", substrate_phase)
     launches["8"] = topk_dist_launches()
-    eb_report["launches"] = embed_bag.launches
     log(f"phase 8 launched embed_bag {embed_bag.launches} times (wide-deep's "
         f"bag) and topk_dist {launches['8']} times in the port (the exact "
         f"tier), {Live.truth_launches} more for the ground truth")
     check(embed_bag.launches > 0, "phase 8 never launched embed_bag")
     check(launches["8"] > 0, "phase 8 never launched topk_dist")
+    eb_launches = {"8": embed_bag.launches}
+
+    log("cut: phase 9 trains stablelm-1.6b at global batch 2 instead of "
+        "train_4k's 256 (one card holds the 1.64 B parameters, bf16 grads "
+        "and f32 moments, ~20 GB, plus one microbatch of 2 x 4,096)")
+    log("cut: phase 9's trainer CLI runs stablelm-1.6b's smoke config (a "
+        "full-width checkpoint with moments and error buffers is ~26 GB of "
+        "npz)")
+    embed_bag.launches = 0
+    topk_dist.launches = Live.truth_launches = 0
+    results["9_train"] = timed("9_train", train_phase)
+    eb_launches["9"] = embed_bag.launches
+    launches["9"] = topk_dist_launches()
+    log(f"phase 9 launched embed_bag {eb_launches['9']} times (wide-deep's "
+        f"bag, one forward a training step; its backward is the plain "
+        f"scatter-add) and topk_dist {launches['9']} times")
+    check(eb_launches["9"] == 5, "phase 9 did not launch embed_bag once a "
+                                 "wide-deep step")
+    eb_report["launches"] = sum(eb_launches.values())
+    results["embed_bag_launches_by_phase"] = eb_launches
     report["launches"] = sum(launches.values())
     results["topk_dist_launches_by_phase"] = launches
     results["kernels"] = [report, l2_report, eb_report]

@@ -39,8 +39,9 @@ def embed_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
         raise TypeError(f"embed_bag kernel takes a float32 or bfloat16 "
                         f"table, got {table.dtype}")
     if torch.is_grad_enabled() and table.requires_grad:
-        raise RuntimeError("the embed_bag CUDA kernel has no backward; call "
-                           "embed_bag_ref to differentiate")
+        raise RuntimeError("the embed_bag CUDA kernel has no backward of "
+                           "its own; call embed_bag (ops), whose autograd "
+                           "Function differentiates the table")
     table = table.contiguous()
     idx = indices.to(torch.int32).contiguous()
     (V, D), (B, L) = table.shape, idx.shape

@@ -1,16 +1,40 @@
 """The ``embed_bag`` wrapper: checks, empty shapes, and dispatch.
 
-A CUDA tensor launches the hand-written kernel (``embed_bag.py``) or
-raises; only a tensor that lies on the CPU takes the plain version
-(``ref.py``). The kernel has no backward, as the reference's has none;
-``embed_bag_ref`` is the differentiable version.
+A CUDA tensor goes through ``EmbedBagFunction``, which launches the
+hand-written kernel (``embed_bag.py``) or raises; only a tensor that lies
+on the CPU takes the plain version (``ref.py``), which autograd
+differentiates. Where the table requires grad, the Function's backward
+scatters the table's gradient with ``embed_bag_backward_ref`` (plain
+PyTorch, as the reference's gradient is XLA's autodiff of its jnp bag,
+outside any Pallas kernel).
 """
 from __future__ import annotations
 
 import torch
 
 from .embed_bag import embed_bag_cuda
-from .ref import MODES, embed_bag_ref
+from .ref import MODES, embed_bag_backward_ref, embed_bag_ref
+
+
+class EmbedBagFunction(torch.autograd.Function):
+    """``embed_bag`` on a CUDA table: the kernel forward on the detached
+    table, and a gradient for the table when it requires one."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, indices: torch.Tensor,
+                mode: str) -> torch.Tensor:
+        ctx.save_for_backward(indices)
+        ctx.mode, ctx.num_rows, ctx.dtype = mode, table.shape[0], table.dtype
+        return embed_bag_cuda(table.detach(), indices, mode)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (indices,) = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = embed_bag_backward_ref(grad_out, indices, ctx.num_rows,
+                                          ctx.dtype, ctx.mode)
+        return grad, None, None
 
 
 def embed_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -19,7 +43,7 @@ def embed_bag(table: torch.Tensor, indices: torch.Tensor,
 
     ``table[V, D]`` f32 or bf16, ``indices[B, L]`` int; returns
     ``f32[B, D]``. ``mode`` is ``"sum"`` or ``"mean"`` (divides by the
-    count of indices >= 0, at least 1).
+    count of indices >= 0, at least 1). Differentiable in ``table``.
     """
     if mode not in MODES:
         raise ValueError(f"unknown embed_bag mode {mode!r}; expected one "
@@ -42,7 +66,7 @@ def embed_bag(table: torch.Tensor, indices: torch.Tensor,
     (V, D), (B, L) = table.shape, indices.shape
     if B == 0 or D == 0 or L == 0 or V == 0:     # nothing to launch
         return torch.zeros((B, D), dtype=torch.float32, device=table.device)
-    out = embed_bag_cuda(table, indices, mode)
+    out = EmbedBagFunction.apply(table, indices, mode)
     embed_bag.launches += 1
     return out
 

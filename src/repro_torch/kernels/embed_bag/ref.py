@@ -6,6 +6,9 @@ two differ by bf16 rounding of the partial sums). Indices are valid in
 ``[0, V)``; ``-1`` is padding, and an index at or past ``V`` contributes
 nothing, as in the TPU kernel's one-hot. ``"mean"`` divides by the count
 of indices ``>= 0`` (at least 1), as the reference's wrapper does.
+
+``embed_bag_backward_ref`` is the table's gradient: the output gradient
+scatter-added into the rows the bags gathered, in f32.
 """
 from __future__ import annotations
 
@@ -28,3 +31,30 @@ def embed_bag_ref(table: torch.Tensor, indices: torch.Tensor,
         cnt = torch.clamp_min(torch.sum(indices >= 0, dim=1, keepdim=True), 1)
         out = out / cnt.float()
     return out
+
+
+def embed_bag_backward_ref(grad_out: torch.Tensor, indices: torch.Tensor,
+                           num_rows: int, dtype: torch.dtype,
+                           mode: str = "sum") -> torch.Tensor:
+    """The gradient of ``embed_bag_ref(table, indices, mode)`` with respect
+    to a ``[num_rows, D]`` table of ``dtype``, given ``grad_out[B, D]``.
+
+    Each valid id adds its bag's output gradient to its row (duplicate ids
+    accumulate; ``-1`` and ids at or past ``num_rows`` add nothing);
+    ``"mean"`` divides by the bag's count of ids ``>= 0``, at least 1. Sums
+    in f32 with ``index_add_``, then casts to ``dtype``.
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown embed_bag mode {mode!r}; expected one "
+                         f"of {MODES}")
+    g = grad_out.float()
+    if mode == "mean":
+        cnt = torch.clamp_min(torch.sum(indices >= 0, dim=1, keepdim=True), 1)
+        g = g / cnt.float()
+    B, L = indices.shape
+    valid = (indices >= 0) & (indices < num_rows)
+    rows = indices.long()[valid]                                  # [n]
+    src = g[:, None, :].expand(B, L, g.shape[1])[valid]           # [n, D]
+    grad = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32,
+                       device=g.device)
+    return grad.index_add_(0, rows, src).to(dtype)

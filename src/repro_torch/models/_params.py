@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .._tree import tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
@@ -26,39 +28,6 @@ class Leaf:
     dtype: torch.dtype
     init: str
     scale: float = 1.0
-
-
-def tree_leaves(tree, path=()):
-    """``(path, leaf)`` pairs in order; a path holds dict keys and list
-    positions."""
-    if isinstance(tree, dict):
-        for key, sub in tree.items():
-            yield from tree_leaves(sub, path + (key,))
-    elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            yield from tree_leaves(sub, path + (i,))
-    else:
-        yield path, tree
-
-
-def tree_map(fn, tree, *rest):
-    """``fn(leaf, *other_leaves)`` over trees of one structure (dicts must
-    have the same keys, lists the same lengths)."""
-    if isinstance(tree, dict):
-        for other in rest:
-            if not isinstance(other, dict) or other.keys() != tree.keys():
-                raise ValueError(f"tree structures differ: keys "
-                                 f"{sorted(tree)} against "
-                                 f"{sorted(other) if isinstance(other, dict) else type(other).__name__}")
-        return {k: tree_map(fn, tree[k], *(o[k] for o in rest))
-                for k in tree}
-    if isinstance(tree, (list, tuple)):
-        for other in rest:
-            if not isinstance(other, (list, tuple)) or len(other) != len(tree):
-                raise ValueError(f"tree structures differ: a list of "
-                                 f"{len(tree)} against {other!r:.80}")
-        return [tree_map(fn, *subs) for subs in zip(tree, *rest)]
-    return fn(tree, *rest)
 
 
 def normal_generator(generator: torch.Generator | None, seed: int, device

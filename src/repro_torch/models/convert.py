@@ -1,6 +1,6 @@
 """Carry parameters across from the JAX reference's trees.
 
-The reference's params, taken to numpy on its side
+The reference's params (and its AdamW state), taken to numpy on its side
 (``jax.tree.map(np.asarray, params)``), come in as a tree of dicts and
 lists of numpy arrays; the port's tree has the same structure, so the carry
 is a tree map that checks every leaf's shape against the model's
@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.common import tensor_from_host
+from ..core.common import host_array, tensor_from_host
+from .._tree import tree_map
 from . import recsys, transformer
-from ._params import Leaf, tree_map
+from ._params import Leaf
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -44,3 +45,21 @@ def recsys_params_from_reference(cfg, tree, device="cuda") -> dict:
     """The reference's recsys params (numpy leaves) as the port's tree on
     ``device``."""
     return _carry(recsys.param_spec(cfg), tree, device)
+
+
+def adamw_state_from_reference(state, device="cuda") -> dict:
+    """The reference's ``adamw_init`` / ``adamw_update`` state (numpy
+    leaves: ``m`` and ``v`` trees, a scalar ``step``) as the port's, on
+    ``device``, bit for bit."""
+    def carry(tree):
+        return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+    return {"m": carry(state["m"]), "v": carry(state["v"]),
+            "step": tensor_from_numpy(state["step"], device)}
+
+
+def adamw_state_to_reference(state) -> dict:
+    """The port's AdamW state as the reference's tree of numpy arrays."""
+    def host(tree):
+        return tree_map(host_array, tree)
+    return {"m": host(state["m"]), "v": host(state["v"]),
+            "step": host_array(state["step"])}

@@ -2,16 +2,17 @@
 
 Each wrapper registers every leaf of the parameter tree as a buffer (so
 ``.to()``, ``state_dict()`` and the device follow the module) and exposes
-the functional forwards of its model under ``torch.inference_mode``: the
-port runs the serving path, and the ``embed_bag`` kernel has no backward.
+the functional forwards of its model under ``torch.inference_mode``: they
+serve. Training works on the parameter tree itself
+(``models.api.make_train_step``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .._tree import tree_leaves
 from . import recsys, transformer
-from ._params import tree_leaves
 
 
 def _insert(node, path: tuple, leaf) -> None:

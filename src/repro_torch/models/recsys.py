@@ -1,19 +1,20 @@
-"""RecSys towers, serving side: wide-deep, AutoInt, DIEN (AUGRU), SASRec.
+"""RecSys towers: wide-deep, AutoInt, DIEN (AUGRU), SASRec.
 
 The same models as the JAX reference's ``models/recsys.py``, with its
-parameter tree. Sparse lookups are gathers; wide-deep's multi-hot
-behaviour bag goes through the port's ``embed_bag`` (the hand-written CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor), where the
-reference sums a jnp gather. The kernel has no backward, so the tables must
-not require grad when grad is on (the ``nn.Module`` wrapper holds them as
-buffers and runs under ``torch.inference_mode``).
+parameter tree, and its training loss (``loss_fn``). Sparse lookups are
+gathers; wide-deep's multi-hot behaviour bag goes through the port's
+``embed_bag`` (the hand-written CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor), where the reference sums a jnp gather. The bag
+is differentiable in its table on both devices (on the card through
+``EmbedBagFunction``: the kernel forward, a plain scatter-add backward), so
+``loss_fn`` trains every table.
 
 Every tower also exposes a retrieval tower: ``user_repr`` scored against
 the item catalogue with a top-k whose ties go to the lowest item id, as
 ``lax.top_k``'s do (the ``retrieval_cand`` shape; the catalogue can also be
 served from the updatable HNSW index, ``repro_torch.api``).
 
-Not ported here: the training loss and the GSPMD sharding specs.
+Not ported here: the GSPMD sharding specs.
 """
 from __future__ import annotations
 
@@ -240,6 +241,32 @@ def forward(cfg: RecSysConfig, params: dict, batch: dict, *, bag=embed_bag):
         tgt = params["item_embed"][batch["target_id"].long()]
         return torch.sum(user * tgt, dim=-1), user
     raise ValueError(cfg.kind)
+
+
+def loss_fn(cfg: RecSysConfig, params: dict, batch: dict, *, bag=embed_bag):
+    """The training loss and its metrics, ``(loss, {"loss": loss})``.
+
+    SASRec: the masked log-sigmoid of the encoder's states against the
+    positive and the negative next items (``pos_ids`` >= 0 counted);
+    wide-deep, AutoInt, DIEN: the logistic loss of the ranking logit on
+    ``label``, mean over the batch. ``bag`` as in ``forward``.
+    """
+    if cfg.kind == "sasrec":
+        enc = _sasrec_encode(cfg, params, batch["seq_ids"])      # [B, T, D]
+        pos_ids, neg_ids = batch["pos_ids"].long(), batch["neg_ids"].long()
+        pos = params["item_embed"][pos_ids.clamp_min(0)]
+        neg = params["item_embed"][neg_ids.clamp_min(0)]
+        lp = torch.sum(enc * pos, dim=-1)
+        ln_ = torch.sum(enc * neg, dim=-1)
+        m = (pos_ids >= 0).float()
+        loss = -torch.sum((F.logsigmoid(lp) + F.logsigmoid(-ln_)) * m) \
+            / torch.clamp_min(m.sum(), 1)
+        return loss, {"loss": loss}
+    logit, _ = forward(cfg, params, batch, bag=bag)
+    y = batch["label"].float()
+    loss = torch.mean(torch.clamp_min(logit, 0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
+    return loss, {"loss": loss}
 
 
 def user_repr(cfg: RecSysConfig, params: dict, batch: dict) -> torch.Tensor:

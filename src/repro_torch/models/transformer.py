@@ -1,4 +1,4 @@
-"""Dense decoder-only LM, serving side: GQA, RoPE, RMSNorm, SwiGLU.
+"""Dense decoder-only LM: GQA, RoPE, RMSNorm, SwiGLU; serving and training.
 
 The same model as the JAX reference's ``models/transformer.py`` for the
 dense configs (codeqwen, yi, stablelm), with its stacked parameter layout:
@@ -9,9 +9,15 @@ and ``rope`` compute in f32 and cast back, attention scores are taken in
 f32 and the probabilities cast back, the logits are f32. Only
 ``init_cache`` fixes a dtype (``COMPUTE_DTYPE``).
 
+Training: ``lm_loss`` is the reference's causal LM loss, its
+cross-entropy over ``CE_CHUNK``-token chunks each under a checkpoint, so
+the ``[B, S, V]`` logits are never whole; ``remat=True`` checkpoints each
+layer (``torch.utils.checkpoint``, nothing saved inside a layer, as the
+reference's ``jax.checkpoint(nothing_saveable)``).
+
 Not ported here: the MoE layers (a config with ``moe=True`` raises
-``NotImplementedError``), the training loss, ``remat`` (raises) and the
-GSPMD sharding specs (the port has no mesh of that kind).
+``NotImplementedError``) and the GSPMD sharding specs and ``act_spec``
+(the port has no mesh of that kind).
 """
 from __future__ import annotations
 
@@ -19,12 +25,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ._params import Leaf, draw_tree, normal_generator
 
 COMPUTE_DTYPE = torch.bfloat16
 Q_CHUNK = 512   # query-block size for memory-bounded attention
+CE_CHUNK = 256  # sequence chunk for the memory-bounded CE loss
 
 MOE_NOT_PORTED = ("MoE layers are not ported yet (ROADMAP §1 item 14c, the "
                   "MoE layers); the port runs the dense configs")
@@ -172,8 +180,13 @@ def swiglu(x, wg, wu, wd):
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+def _layers(params: dict) -> list[dict]:
+    """Every layer's weights, one ``unbind`` a stacked weight (its backward
+    stacks the layers' gradients once, where indexing layer by layer would
+    add a full-size gradient per layer)."""
+    names = list(params["layers"])
+    cols = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, ws)) for ws in zip(*cols)]
 
 
 def _block(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -198,18 +211,21 @@ def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                    remat: bool = False):
     """tokens [B, S] -> (final hidden [B, S, D] (normed), aux_loss).
 
-    ``aux_loss`` is an f32 zero: it is the MoE balance loss in the
-    reference, and the port runs dense configs only.
+    ``remat=True`` checkpoints each layer (recomputed in the backward): only
+    the ``[B, S, D]`` hidden state between layers is kept for the backward,
+    not the attention and FFN activations. ``aux_loss`` is an f32 zero: it
+    is the MoE balance loss in the reference, and the port runs dense
+    configs only.
     """
     _check_dense(cfg)
-    if remat:
-        raise NotImplementedError("remat= is a training option; the port "
-                                  "runs the serving path only")
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = _positions(B, S, tokens.device)
-    for i in range(cfg.num_layers):
-        x = _block(cfg, _layer(params, i), x, positions)
+    for lp in _layers(params):
+        if remat:
+            x = checkpoint(_block, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = _block(cfg, lp, x, positions)
     return (rmsnorm(x, params["final_norm"], cfg.norm_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -232,8 +248,8 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor):
     x = params["embed"][tokens.long()]
     positions = _positions(B, S, tokens.device)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _block(cfg, _layer(params, i), x, positions,
+    for lp in _layers(params):
+        x, (k, v) = _block(cfg, lp, x, positions,
                            return_kv=True)
         ks.append(k)
         vs.append(v)
@@ -241,6 +257,46 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor):
     logits = (x[:, -1] @ params["lm_head"]).float()
     return logits[:, :cfg.vocab_size], {"k": torch.stack(ks),
                                         "v": torch.stack(vs)}
+
+
+def _ce_chunk(cfg: LMConfig, lm_head: torch.Tensor, h: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """Summed CE over one sequence chunk: the logsumexp over the vocabulary
+    (padding rows masked to -1e30) minus the target's logit, taken as a
+    column gather of ``lm_head`` (``[B, c, D]``, not ``[B, c, V]``)."""
+    logits = (h @ lm_head).float()                               # [B, c, Vp]
+    if cfg.vocab_padded != cfg.vocab_size:                       # mask padding
+        pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    w_t = lm_head.T[t.long()]                                    # [B, c, D]
+    picked = torch.einsum("bsd,bsd->bs", h.float(), w_t.float())
+    return torch.sum(lse - picked)
+
+
+def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            remat: bool = True):
+    """tokens [B, S+1]: causal LM loss (mean over tokens) + 0.01 x the MoE
+    aux loss; returns ``(loss, {"loss", "aux"})``.
+
+    The CE runs over ``CE_CHUNK``-token chunks, added in order, each under a
+    checkpoint, so the ``[B, S, V]`` logits are never materialised (forward
+    or backward); a sequence that is not a multiple of ``CE_CHUNK``, or not
+    longer than it, takes one chunk, as in the reference.
+    """
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    B, S = inputs.shape
+    x, aux = forward_hidden(cfg, params, inputs, remat=remat)
+    if S % CE_CHUNK != 0 or S <= CE_CHUNK:
+        total = _ce_chunk(cfg, params["lm_head"], x, targets)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, S, CE_CHUNK):
+            total = total + checkpoint(
+                _ce_chunk, cfg, params["lm_head"], x[:, i:i + CE_CHUNK],
+                targets[:, i:i + CE_CHUNK], use_reentrant=False)
+    loss = total / (B * S)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +328,7 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
     Tmax = cache["k"].shape[2]
     kv_positions = _positions(B, Tmax, token.device)
     rows = torch.arange(B, device=token.device)
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         ck, cv = cache["k"][i], cache["v"][i]
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         k_new = (h @ lp["wk"]).reshape(B, 1, KV, hd)

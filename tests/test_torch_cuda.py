@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.embed_bag import embed_bag, embed_bag_ref
-from repro_torch.kernels.embed_bag.embed_bag import lane_layout, vector_loads
+from repro_torch.kernels.embed_bag import (EmbedBagFunction, embed_bag,
+                                           embed_bag_backward_ref,
+                                           embed_bag_ref)
+from repro_torch.kernels.embed_bag.embed_bag import (embed_bag_cuda,
+                                                     lane_layout, vector_loads)
 from repro_torch.kernels.l2dist import l2dist, l2dist_ref
 from repro_torch.kernels.topk_dist import topk_dist, topk_dist_ref
 
@@ -392,3 +395,66 @@ def test_embed_bag_kernel_unaligned_table_view(cuda, d, dtype):
             out.cpu().numpy(),
             embed_bag(flat[:-1].view(v, d).clone().copy_(tab), idx,
                       mode).cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_bag_function_matches_autograd_through_the_plain_bag(
+        cuda, mode, dtype, monkeypatch):
+    """A CUDA table that requires grad goes through ``EmbedBagFunction``:
+    the kernel forward (never the plain one) and the scatter-add backward.
+    Forward and table gradient against autograd through ``embed_bag_ref``
+    on the same CUDA tensors: 1e-4 in f32. A bf16 gradient is one bf16
+    rounding of the f32 sums (2^-8 relative) from the f32 gradient, and the
+    plain bag's autograd on the bf16 table accumulates in bf16, so it is
+    held to n bf16 roundings (n = the most times one row is gathered)."""
+    from repro_torch.kernels.embed_bag import ops
+    v, d, b, l = 3000, 32, 257, 40
+    rng = np.random.default_rng(b + (dtype == torch.bfloat16))
+    tab = torch.tensor(rng.normal(size=(v, d)), dtype=dtype, device=cuda)
+    idx = rng.integers(-1, v + 20, size=(b, l)).astype(np.int32)
+    idx[0] = -1                                   # an all-padding bag
+    idx[1] = 5                                    # one id l times
+    idx[2, :10] = idx[3, :10] = 7                 # shared across bags
+    idx = torch.tensor(idx, device=cuda)
+    gout = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32,
+                        device=cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain forward was reached")
+    t1 = tab.clone().requires_grad_()
+    monkeypatch.setattr(ops, "embed_bag_ref", refuse)
+    before = embed_bag.launches
+    out = embed_bag(t1, idx, mode)
+    assert embed_bag.launches == before + 1
+    assert type(out.grad_fn).__name__ == "EmbedBagFunctionBackward"
+    (out * gout).sum().backward()
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert embed_bag.launches == before + 1       # the backward launches none
+    t2 = tab.clone().requires_grad_()
+    ref = embed_bag_ref(t2, idx, mode)
+    (ref * gout).sum().backward()
+    torch.testing.assert_close(out.detach(), ref.detach(), rtol=1e-4,
+                               atol=1e-4)
+    assert t1.grad.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-4, atol=1e-4)
+    else:
+        t32 = tab.float().requires_grad_()
+        (embed_bag_ref(t32, idx, mode) * gout).sum().backward()
+        torch.testing.assert_close(t1.grad.float(), t32.grad,
+                                   rtol=2.0 ** -8, atol=1e-6)
+        mag = embed_bag_backward_ref(gout.abs(), idx, v, torch.float32, mode)
+        valid = idx[(idx >= 0) & (idx < v)].long()
+        n = int(torch.bincount(valid, minlength=v).max())
+        assert bool(((t2.grad.float() - t1.grad.float()).abs()
+                     <= n * 2.0 ** -8 * mag + 1e-30).all())
+    # rows no bag gathered get nothing; a direct kernel call still refuses
+    hit = torch.zeros(v, dtype=torch.bool, device=cuda)
+    hit[idx[(idx >= 0) & (idx < v)].long()] = True
+    assert bool((t1.grad[~hit] == 0).all())
+    with pytest.raises(RuntimeError, match="backward"):
+        embed_bag_cuda(t1, idx, mode)
+    assert EmbedBagFunction.apply(tab, idx, mode).shape == (b, d)

@@ -28,7 +28,10 @@ PORTED = ["core/maintenance.py", "api/facade.py", "api/__init__.py",
           "configs/base.py", "configs/stablelm_1_6b.py",
           "configs/wide_deep.py", "data/pipeline.py", "data/synthetic.py",
           "models/__init__.py", "models/_params.py", "models/convert.py",
-          "models/modules.py", "models/recsys.py", "models/transformer.py"]
+          "models/modules.py", "models/recsys.py", "models/transformer.py",
+          "models/api.py", "train/__init__.py", "train/optimizer.py",
+          "train/compress.py", "train/checkpoint.py", "launch/train.py",
+          "_tree.py"]
 KERNELS = ["topk_dist", "l2dist", "embed_bag"]
 
 

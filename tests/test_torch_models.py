@@ -27,7 +27,7 @@ from repro_torch.models import (RecSysModel, TransformerLM,
                                 lm_params_from_reference,
                                 recsys_params_from_reference, recsys,
                                 transformer)
-from repro_torch.models._params import tree_leaves
+from repro_torch._tree import tree_leaves
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -293,13 +293,6 @@ def test_moe_configs_raise_not_implemented(arch):
         transformer.forward_hidden(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="MoE"):
         lm_params_from_reference(cfg, {}, "cpu")
-
-
-def test_remat_raises():
-    cfg, rp, pcfg, params = _lm_pair("stablelm-1.6b", f32=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        transformer.forward(pcfg, params, torch.zeros((1, 4), dtype=torch.int32),
-                            remat=True)
 
 
 # ---------------------------------------------------------------------------
