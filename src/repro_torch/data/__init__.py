@@ -1,7 +1,7 @@
 from .pipeline import PrefetchPipeline, SyntheticStream
 from .synthetic import (brute_force_knn, clustered_vectors, exact_knn,
-                        lm_token_batch, recsys_batch)
+                        gnn_batch, lm_token_batch, recsys_batch)
 
 __all__ = ["brute_force_knn", "clustered_vectors", "exact_knn",
-           "lm_token_batch", "recsys_batch", "PrefetchPipeline",
+           "gnn_batch", "lm_token_batch", "recsys_batch", "PrefetchPipeline",
            "SyntheticStream"]

@@ -2,7 +2,8 @@
 
 Clustered Gaussians at SIFT d=128, GIST d=960 or ImageNet d=150; every
 metric is relative to exact brute force. LM token streams and recsys
-batches feed the embedding models. The same seed gives the same arrays as
+batches feed the embedding models, graph batches with pair-potential
+energies the GNN. The same seed gives the same arrays as
 the reference package's generators.
 """
 from __future__ import annotations
@@ -88,3 +89,47 @@ def recsys_batch(cfg, batch: int, seed: int) -> dict:
                                       size=(batch, cfg.seq_len)).astype(np.int32)
         out["target_id"] = out["pos_ids"][:, -1].copy()
     return out
+
+
+def _pair_potential(pos: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                    graph_id: np.ndarray, n_graphs: int) -> np.ndarray:
+    """Cheap learnable target: sum over edges of a Morse-ish pair term."""
+    r = np.linalg.norm(pos[dst] - pos[src], axis=1) + 1e-9
+    e = np.exp(-r) - 0.5 * np.exp(-2 * r)
+    out = np.zeros(n_graphs)
+    np.add.at(out, graph_id[dst], e)
+    return out.astype(np.float32)
+
+
+def gnn_batch(cfg, n_nodes: int, n_edges: int, seed: int,
+              n_graphs: int = 1, d_feat: int = 0) -> dict:
+    """Random geometric-ish graph batch with synthetic energy targets.
+
+    Edges are drawn over all nodes, then every edge across two graphs
+    becomes a self-loop of its ``dst`` (which ``nequip.forward`` masks
+    out): with many small graphs almost every edge does (ROADMAP §3).
+    """
+    rng = np.random.default_rng(seed)
+    pos = (rng.normal(size=(n_nodes, 3)) * 2.0).astype(np.float32)
+    species = rng.integers(0, cfg.n_species, size=n_nodes).astype(np.int32)
+    src = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    nodes_per_graph = n_nodes // n_graphs
+    graph_id = np.minimum(np.arange(n_nodes) // nodes_per_graph,
+                          n_graphs - 1).astype(np.int32)
+    # keep edges within one graph
+    src = np.where(graph_id[src] == graph_id[dst], src, dst)
+    batch = {
+        "positions": pos,
+        "species": species,
+        "src": src,
+        "dst": dst,
+        "edge_mask": np.ones(n_edges, np.float32),
+        "node_mask": np.ones(n_nodes, np.float32),
+        "graph_id": graph_id,
+        "n_graphs": n_graphs,
+        "energy_target": _pair_potential(pos, src, dst, graph_id, n_graphs),
+    }
+    if d_feat:
+        batch["node_feats"] = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    return batch

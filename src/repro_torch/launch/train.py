@@ -1,17 +1,17 @@
 """Fault-tolerant training driver.
 
-Trains an ``lm`` (dense) or ``recsys`` arch (the reduced smoke config
-unless ``--full-config``) with the whole substrate: a seeded stateless
-data stream with background prefetch, AdamW, optional gradient compression
-with error feedback, atomic keep-k async checkpoints, resume from the
-newest, and an injected failure to exercise the restart path. Runs on the
-GPU unless ``--device cpu``:
+Trains any arch, ``lm`` (dense or MoE), ``gnn`` (NequIP) or ``recsys``
+(the reduced smoke config unless ``--full-config``), with the whole
+substrate: a seeded stateless data stream with background prefetch,
+AdamW, optional gradient compression with error feedback, atomic keep-k
+async checkpoints, resume from the newest, and an injected failure to
+exercise the restart path. Runs on the GPU unless ``--device cpu``:
 
   python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --steps 200 --ckpt-dir /tmp/ckpt --batch 8 --seq 128
 
-A ``gnn`` arch raises ``NotImplementedError`` (ROADMAP §1 item 14d), and
-so does a MoE config (item 14c).
+A ``gnn`` arch trains on ``gnn_batch`` graphs of ``--gnn-nodes`` nodes and
+``--gnn-edges`` edges in ``--gnn-graphs`` graphs.
 """
 from __future__ import annotations
 
@@ -26,18 +26,23 @@ import torch
 
 from ..configs import get_config, get_smoke_config
 from ..core.common import resolve_device
-from ..data import lm_token_batch, recsys_batch
+from ..data import gnn_batch, lm_token_batch, recsys_batch
 from ..data.pipeline import PrefetchPipeline, SyntheticStream
-from ..models import get_api, recsys as recsys_mod, transformer, value_and_grad
+from ..models import (get_api, nequip, recsys as recsys_mod, transformer,
+                      value_and_grad)
 from .._tree import tree_leaves
 from ..train import (CheckpointManager, CompressorConfig, adamw_init,
                      adamw_update, compress_init, compressed_grads)
 
 
-def make_loss(api, cfg):
+def make_loss(api, cfg, args):
     if api.family == "lm":
         def loss(p, b):
             return transformer.lm_loss(cfg, p, b["tokens"])
+        return loss
+    if api.family == "gnn":
+        def loss(p, b):
+            return nequip.loss_fn(cfg, p, {**b, "n_graphs": args.gnn_graphs})
         return loss
     return partial(recsys_mod.loss_fn, cfg)
 
@@ -46,6 +51,13 @@ def make_batch_fn(api, cfg, args):
     if api.family == "lm":
         return lambda step: {"tokens": lm_token_batch(
             cfg.vocab_size, args.batch, args.seq, seed=step)}
+    if api.family == "gnn":
+        def fn(step):
+            b = gnn_batch(cfg, args.gnn_nodes, args.gnn_edges, seed=step,
+                          n_graphs=args.gnn_graphs)
+            b.pop("n_graphs")
+            return b
+        return fn
     return lambda step: recsys_batch(cfg, args.batch, seed=step)
 
 
@@ -60,6 +72,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--gnn-nodes", type=int, default=64)
+    ap.add_argument("--gnn-edges", type=int, default=256)
+    ap.add_argument("--gnn-graphs", type=int, default=4)
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -86,7 +101,7 @@ def main(argv=None):
 
     comp_cfg = CompressorConfig(scheme=args.compress)
     ef = compress_init(params)
-    loss_fn = make_loss(api, cfg)
+    loss_fn = make_loss(api, cfg, args)
 
     def train_step(params, opt_state, ef, batch):
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)

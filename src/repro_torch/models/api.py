@@ -3,8 +3,8 @@
 The training half of the JAX reference's ``models/api.py``. ``get_api``
 returns an ``ArchAPI`` (the config, its family, ``init_params`` and the
 AdamW config); ``make_train_step`` turns a loss into one optimizer step.
-The families are ``lm`` (the dense configs; a MoE config raises, ROADMAP
-§1 item 14c) and ``recsys``; a ``GNNConfig`` raises (item 14d).
+The families are ``lm`` (the dense and MoE configs), ``gnn`` (NequIP) and
+``recsys``.
 
 Not ported here: ``StepBundle``, ``ArchAPI.make_step``, the ``_*_step``
 cells and the pspec methods. They build abstract shapes and GSPMD specs for
@@ -22,10 +22,7 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..configs.base import GNNConfig, LMConfig, RecSysConfig
 from ..train.optimizer import AdamWConfig, adamw_update
-from . import recsys, transformer
-
-GNN_NOT_PORTED = ("NequIP is not ported yet (ROADMAP §1 item 14d, "
-                  "NequIP); the port trains the lm and recsys families")
+from . import nequip, recsys, transformer
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -48,7 +45,10 @@ def value_and_grad(loss_fn: Callable, params, batch):
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     ``value_and_grad`` of ``loss_fn(params, batch) -> (loss, metrics)``,
-    then ``adamw_update``; the metrics gain ``lr`` and ``grad_norm``."""
+    then ``adamw_update``; the metrics gain ``lr`` and ``grad_norm``.
+    ``params`` and the moments are updated in place (the reference's
+    jitted step donates both), so a model whose parameters, gradients and
+    moments fill the card trains without a second copy."""
     def step(params, opt_state, batch):
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)
         params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
@@ -71,7 +71,8 @@ def get_api(config) -> ArchAPI:
         return ArchAPI(config, "lm", partial(transformer.init_params, config),
                        opt)
     if isinstance(config, GNNConfig):
-        raise NotImplementedError(f"{config.name}: {GNN_NOT_PORTED}")
+        return ArchAPI(config, "gnn", partial(nequip.init_params, config),
+                       opt)
     if isinstance(config, RecSysConfig):
         return ArchAPI(config, "recsys", partial(recsys.init_params, config),
                        opt)

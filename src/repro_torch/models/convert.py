@@ -15,7 +15,7 @@ import torch
 
 from ..core.common import host_array, tensor_from_host
 from .._tree import tree_map
-from . import recsys, transformer
+from . import nequip, recsys, transformer
 from ._params import Leaf
 
 
@@ -36,9 +36,15 @@ def _carry(spec, tree, device):
 
 
 def lm_params_from_reference(cfg, tree, device="cuda") -> dict:
-    """The reference's dense-LM params (numpy leaves) as the port's tree on
-    ``device``. A config with ``moe=True`` raises ``NotImplementedError``."""
+    """The reference's LM params (numpy leaves; dense or MoE, with a MoE
+    config's ``dense_layers``) as the port's tree on ``device``."""
     return _carry(transformer.param_spec(cfg), tree, device)
+
+
+def gnn_params_from_reference(cfg, tree, device="cuda") -> dict:
+    """The reference's NequIP params (numpy leaves) as the port's tree on
+    ``device``."""
+    return _carry(nequip.param_spec(cfg), tree, device)
 
 
 def recsys_params_from_reference(cfg, tree, device="cuda") -> dict:

@@ -3,15 +3,18 @@
 The JAX reference's ``train/optimizer.py`` over the port's parameter trees
 (dicts and lists of tensors, ``models._params``). The optimizer state is a
 tree shaped like the parameters (``m`` and ``v`` in f32) plus an int32
-``step``; every function returns new trees, as the reference's do.
+``step``.
 
 The reference computes the learning rate, the bias corrections and the clip
 scale in f32 under ``jit``; here they are f32 tensors on the parameters'
 device (Python floats would compute them in f64 and drift the parameters by
 ulps on every step). A bf16 parameter is updated in f32 and rounded back;
-its moments stay f32. Each leaf's update runs in place on its new tensors,
-with the multiply-adds XLA fuses fused here too, so the temporaries of the
-largest leaf stay few.
+its moments stay f32. ``adamw_update`` writes the new parameters and
+moments into the old tensors, ``UPDATE_CHUNK`` elements at a time, with the
+multiply-adds XLA fuses fused here too (the reference's jitted train step
+donates its parameters and state): the old and new states never coexist,
+and the temporaries are those of one chunk. A caller that reads the old
+parameters after a step copies them first.
 """
 from __future__ import annotations
 
@@ -89,12 +92,16 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: _scaled(g, scale), grads), gnorm
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
-    """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``.
+UPDATE_CHUNK = 1 << 24     # elements the update computes at a time
 
-    Clipping is applied leaf by leaf inside the update (the same
-    arithmetic as clipping the whole tree first, without a clipped copy of
-    every gradient)."""
+
+def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
+    """One AdamW step: ``(params, new state, {"lr", "grad_norm"})``.
+
+    ``params`` and ``state``'s moments are overwritten with the new values
+    and returned. Clipping is applied leaf by leaf inside the update (the
+    same arithmetic as clipping the whole tree first, without a clipped
+    copy of every gradient)."""
     with torch.no_grad():
         gnorm = _global_norm(_leaves(grads))
         scale = _clip_scale(gnorm, cfg.grad_clip)
@@ -105,25 +112,35 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
 
-        # ``a.add_(b, alpha=c)`` is one fused multiply-add, as XLA fuses
-        # ``c * b + a``: the same roundings as the reference, and no
+        # ``torch.add(a, b, alpha=c)`` is one fused multiply-add, as XLA
+        # fuses ``c * b + a``: the same roundings as the reference, and no
         # temporary for the product. The last one needs ``lr`` as a number.
         lr_f = float(lr)
 
         def upd(g, m, v, p):
+            """The new ``m``, ``v`` and ``p`` written into ``m``, ``v`` and
+            ``p`` (``out=`` stores what the functional form returns)."""
             g = _scaled(g, scale).to(torch.float32)
-            m = torch.mul(g, 1 - b1).add_(m, alpha=b1)
-            v = torch.mul(g, 1 - b2).mul_(g).add_(v, alpha=b2)
+            torch.add(torch.mul(g, 1 - b1), m, alpha=b1, out=m)
+            torch.add(torch.mul(g, 1 - b2).mul_(g), v, alpha=b2, out=v)
             del g
             denom = torch.div(v, bc2).sqrt_().add_(cfg.eps)
             delta = torch.div(m, bc1).div_(denom)
             del denom
             pf = p.to(torch.float32)
             delta.add_(pf, alpha=cfg.weight_decay)
-            return torch.sub(pf, delta, alpha=lr_f).to(p.dtype), m, v
+            torch.sub(pf, delta, alpha=lr_f, out=p)   # rounded to p's dtype
 
-        out = tree_map(upd, grads, state["m"], state["v"], params)
-        # ``out`` holds (p, m, v) triples at the parameters' leaf positions
-        pick = lambda i: tree_map(lambda g, o: o[i], grads, out)  # noqa: E731
-        return (pick(0), {"m": pick(1), "v": pick(2), "step": step},
+        def upd_leaf(g, m, v, p):
+            if not all(t.is_contiguous() for t in (p, m, v)):
+                upd(g, m, v, p)         # no flat view: the leaf at once
+                return
+            g = g.reshape(-1)
+            pf, mf, vf = (t.view(-1) for t in (p, m, v))
+            for i in range(0, p.numel(), UPDATE_CHUNK):
+                sl = slice(i, i + UPDATE_CHUNK)
+                upd(g[sl], mf[sl], vf[sl], pf[sl])
+
+        tree_map(upd_leaf, grads, state["m"], state["v"], params)
+        return (params, {"m": state["m"], "v": state["v"], "step": step},
                 {"lr": lr, "grad_norm": gnorm})

@@ -9,7 +9,6 @@ bf16, the tolerance the reference's own prefill/decode test uses
 (``tests/test_models_smoke.py``), since one bf16 rounding of an activation
 is 2^-8 relative. Retrieval ids are compared exactly, ties included.
 """
-import dataclasses
 from functools import lru_cache, partial
 
 import jax
@@ -20,14 +19,15 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.data import lm_token_batch, recsys_batch
+from repro.models import nequip as ref_nequip
 from repro.models import recsys as ref_recsys
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models import (RecSysModel, TransformerLM,
-                                lm_params_from_reference,
+from repro_torch.models import (RecSysModel, TransformerLM, nequip,
                                 recsys_params_from_reference, recsys,
                                 transformer)
 from repro_torch._tree import tree_leaves
+from torch_train_parity import lm_forward_case, lm_pair
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -146,80 +146,14 @@ def test_recsys_batch_size_one_and_serving_module():
 # dense LMs
 # ---------------------------------------------------------------------------
 
-def _lm_pair(arch, f32, **overrides):
-    return _lm_pair_cached(arch, f32, tuple(sorted(overrides.items())))
-
-
-@lru_cache(maxsize=None)
-def _lm_pair_cached(arch, f32, overrides):
-    overrides = dict(overrides)
-    cfg = dataclasses.replace(ref_smoke_config(arch), **overrides)
-    rp = ref_tf.init_params(cfg, jax.random.PRNGKey(1))
-    if f32:
-        rp = jax.tree.map(lambda a: a.astype(jnp.float32), rp)
-    pcfg = dataclasses.replace(get_smoke_config(arch), **overrides)
-    params = lm_params_from_reference(pcfg, jax.tree.map(np.asarray, rp),
-                                      "cpu")
-    return cfg, rp, pcfg, params
-
-
-def _lm_case(arch, f32, B=2, S=12, **overrides):
-    cfg, rp, pcfg, params = _lm_pair(arch, f32, **overrides)
-    tokens = lm_token_batch(cfg.vocab_size, B, S, 3)[:, :S]
-    tol = F32_TOL if f32 else BF16_TOL
-
-    rh, _ = jax.jit(partial(ref_tf.forward_hidden, cfg))(rp, jnp.asarray(tokens))
-    h, aux = transformer.forward_hidden(pcfg, params,
-                                        torch.from_numpy(tokens))
-    assert h.dtype == (torch.float32 if f32 else torch.bfloat16)
-    assert float(aux) == 0.0
-    np.testing.assert_allclose(_t(h), _np(rh), **tol)
-
-    rlogits, _ = jax.jit(partial(ref_tf.forward, cfg))(rp, jnp.asarray(tokens))
-    logits, _ = transformer.forward(pcfg, params, torch.from_numpy(tokens))
-    assert logits.dtype == torch.float32
-    assert logits.shape == (B, S, cfg.vocab_size)
-    np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits), **tol)
-
-    rpre, rcache = jax.jit(partial(ref_tf.prefill, cfg))(
-        rp, jnp.asarray(tokens[:, :-1]))
-    pre, cache = transformer.prefill(pcfg, params,
-                                     torch.from_numpy(tokens[:, :-1]))
-    np.testing.assert_allclose(pre.numpy(), np.asarray(rpre), **tol)
-    for name in ("k", "v"):
-        assert cache[name].shape == rcache[name].shape
-        np.testing.assert_allclose(_t(cache[name]), _np(rcache[name]), **tol)
-
-    pad = ((0, 0), (0, 0), (0, 4), (0, 0), (0, 0))
-    rcache = {k: jnp.pad(v, pad) for k, v in rcache.items()}
-    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4))
-             for k, v in cache.items()}
-    pos = np.full((B,), S - 1, np.int32)
-    rdec, rcache2 = jax.jit(partial(ref_tf.decode_step, cfg))(rp, rcache,
-                                       jnp.asarray(tokens[:, -1]),
-                                       jnp.asarray(pos))
-    k_before = cache["k"]
-    dec, cache2 = transformer.decode_step(pcfg, params, cache,
-                                          torch.from_numpy(tokens[:, -1]),
-                                          torch.from_numpy(pos))
-    assert cache2["k"] is k_before                       # written in place
-    np.testing.assert_allclose(dec.numpy(), np.asarray(rdec), **tol)
-    for name in ("k", "v"):
-        np.testing.assert_allclose(_t(cache2[name]), _np(rcache2[name]),
-                                   **tol)
-    # the reference's own consistency bound: decode vs the full forward
-    np.testing.assert_allclose(dec.numpy(), logits[:, -1].numpy(),
-                               **BF16_TOL)
-
-
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_matches_reference_f32(arch):
-    _lm_case(arch, f32=True)
+    lm_forward_case(arch, f32=True)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_matches_reference_bf16_as_shipped(arch):
-    _lm_case(arch, f32=False)
+    lm_forward_case(arch, f32=False)
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
@@ -227,14 +161,14 @@ def test_stablelm_published_width_one_layer(f32):
     """d_model 2048, 32 heads (head_dim 64), d_ff 5632: stablelm-1.6b's
     published widths, one layer and a 1,024-row vocabulary."""
     full = get_config("stablelm-1.6b")
-    _lm_case("stablelm-1.6b", f32, B=2, S=10, num_layers=1,
+    lm_forward_case("stablelm-1.6b", f32, B=2, S=10, num_layers=1,
              vocab_size=1024, d_model=full.d_model, num_heads=full.num_heads,
              num_kv_heads=full.num_kv_heads, d_ff=full.d_ff)
 
 
 def test_long_sequence_attends_in_query_chunks():
     """S = 2 x Q_CHUNK takes the chunked branch in both packages."""
-    cfg, rp, pcfg, params = _lm_pair("yi-9b", f32=True, num_layers=1)
+    cfg, rp, pcfg, params = lm_pair("yi-9b", f32=True, num_layers=1)
     S = 2 * transformer.Q_CHUNK
     assert S == 2 * ref_tf.Q_CHUNK
     tokens = lm_token_batch(cfg.vocab_size, 1, S, 4)[:, :S]
@@ -246,7 +180,7 @@ def test_long_sequence_attends_in_query_chunks():
 def test_decode_chain_matches_forward():
     """prefill, then several decode steps from ``init_cache``-shaped room,
     against the full forward (f32 params; the cache is written in place)."""
-    cfg, rp, pcfg, params = _lm_pair("stablelm-1.6b", f32=True)
+    cfg, rp, pcfg, params = lm_pair("stablelm-1.6b", f32=True)
     tokens = torch.from_numpy(lm_token_batch(cfg.vocab_size, 3, 15, 8))
     full, _ = transformer.forward(pcfg, params, tokens)
     _, pre = transformer.prefill(pcfg, params, tokens[:, :8])
@@ -266,7 +200,7 @@ def test_decode_chain_matches_forward():
 
 
 def test_transformer_module_wraps_the_functional_forwards():
-    cfg, rp, pcfg, params = _lm_pair("codeqwen1.5-7b", f32=False)
+    cfg, rp, pcfg, params = lm_pair("codeqwen1.5-7b", f32=False)
     model = TransformerLM(pcfg, params)
     tokens = torch.from_numpy(lm_token_batch(cfg.vocab_size, 2, 9, 1))
     assert torch.equal(model(tokens), transformer.forward(pcfg, params,
@@ -284,38 +218,32 @@ def test_transformer_module_wraps_the_functional_forwards():
     assert torch.equal(again(tokens), model(tokens))
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_configs_raise_not_implemented(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.forward_hidden(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_params_from_reference(cfg, {}, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # initialisation and the carry
 # ---------------------------------------------------------------------------
 
-def _ref_init(arch):
-    cfg = ref_smoke_config(arch)
-    mod = ref_tf if arch in LM_ARCHS else ref_recsys
-    return mod.init_params(cfg, jax.random.PRNGKey(0))
+def _modules(arch):
+    """(the reference's module, the port's) of an arch's family."""
+    if arch in LM_ARCHS + MOE_ARCHS:
+        return ref_tf, transformer
+    if arch == "nequip":
+        return ref_nequip, nequip
+    return ref_recsys, recsys
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS + RS_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + MOE_ARCHS + ["nequip"]
+                         + RS_ARCHS)
 def test_init_params_have_the_reference_shapes_dtypes_and_scales(arch):
     """The port draws its own stream, with the reference's tree, shapes,
     dtypes and scales (std within 10% on leaves of 1,000+ entries; the LM
     weights, 0.02 x a standard normal cut at +-2, stay within +-0.04)."""
-    mod = transformer if arch in LM_ARCHS else recsys
+    ref_mod, mod = _modules(arch)
     ours = dict(tree_leaves(mod.init_params(get_smoke_config(arch), seed=3,
                                             device="cpu")))
     ref = {tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path): r
-           for path, r in
-           jax.tree_util.tree_flatten_with_path(_ref_init(arch))[0]}
+           for path, r in jax.tree_util.tree_flatten_with_path(
+               ref_mod.init_params(ref_smoke_config(arch),
+                                   jax.random.PRNGKey(0)))[0]}
     assert ours.keys() == ref.keys()
     for path, t in ours.items():
         r = ref[path]

@@ -485,3 +485,50 @@ def test_embed_bag_on_cpu_is_differentiable_through_the_plain_version():
         t.grad.numpy(), embed_bag_backward_ref(
             torch.from_numpy(gout), torch.from_numpy(idx), 40, torch.float32,
             "mean").numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_donated_update_is_the_same_update_in_place():
+    """``adamw_update`` (and so ``make_train_step``) donates its inputs: it
+    writes the new parameters and moments into the old tensors. One chunk a
+    leaf, several chunks a leaf, and a non-contiguous leaf (updated whole)
+    give the same bits, bf16 leaves included."""
+    from repro_torch.train import optimizer
+    gen = torch.Generator().manual_seed(0)
+
+    def tree():
+        return {"a": torch.randn(5, 7, generator=gen).bfloat16(),
+                "b": [torch.randn(3, generator=gen),
+                      torch.randn(2, 300, generator=gen)]}
+    params, grads = tree(), tree()
+    cfg = AdamWConfig(warmup_steps=1)
+    runs = []
+    for chunk, strided in ((optimizer.UPDATE_CHUNK, False), (64, False),
+                           (64, True)):
+        p = tree_map(torch.clone, params)
+        if strided:                  # the same values, column-major
+            p["b"][1] = p["b"][1].t().contiguous().t()
+            assert not p["b"][1].is_contiguous()
+        s = adamw_init(p)
+        ids = [id(t) for _, t in tree_leaves(p)] + \
+            [id(t) for _, t in tree_leaves({"m": s["m"], "v": s["v"]})]
+        old = optimizer.UPDATE_CHUNK
+        optimizer.UPDATE_CHUNK = chunk
+        try:
+            for _ in range(2):       # the second step has nonzero moments
+                keep = [t.clone() for _, t in tree_leaves(p)]
+                p, s, m = adamw_update(cfg, grads, s, p)
+                assert [id(t) for _, t in tree_leaves(p)] + [
+                    id(t) for _, t in tree_leaves(
+                        {"m": s["m"], "v": s["v"]})] == ids
+                assert not all(torch.equal(a, b) for a, (_, b) in
+                               zip(keep, tree_leaves(p)))
+        finally:
+            optimizer.UPDATE_CHUNK = old
+        runs.append((p, s, m))
+    (p1, s1, m1), rest = runs[0], runs[1:]
+    for p2, s2, m2 in rest:
+        for a, b in zip(tree_leaves({"p": p1, "m": s1["m"], "v": s1["v"]}),
+                        tree_leaves({"p": p2, "m": s2["m"], "v": s2["v"]})):
+            assert torch.equal(a[1], b[1]), a[0]
+        assert torch.equal(s1["step"], s2["step"])
+        assert torch.equal(m1["grad_norm"], m2["grad_norm"])

@@ -1,8 +1,7 @@
 """The port's training driver (``repro_torch.launch.train``) on the CPU:
 it trains, checkpoints, crashes at the injected step and resumes from the
 newest checkpoint, as ``tests/test_system.py::test_train_driver_resume``
-holds the reference's; the families it does not train yet raise, naming
-their ROADMAP item.
+holds the reference's; ``get_api`` serves every family.
 """
 import os
 import subprocess
@@ -14,7 +13,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train
-from repro_torch.models import get_api, recsys, transformer
+from repro_torch.models import get_api, nequip, recsys, transformer
+from repro_torch._tree import tree_leaves
 from repro_torch.train import (AdamWConfig, CheckpointManager, adamw_init,
                                compress_init)
 
@@ -22,7 +22,9 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 def _run(args, tmp):
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # one thread: the smoke config's ops are tiny, and more threads only
+    # contend with the other test processes
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", "stablelm-1.6b", "--steps", "30", "--batch", "2",
@@ -89,18 +91,6 @@ def test_train_driver_recsys_with_compression(arch, tmp_path, capsys):
         assert CheckpointManager(str(d)).all_steps() == [2]
 
 
-def test_gnn_and_moe_archs_raise_naming_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="14d"):
-        train.main(["--device", "cpu", "--arch", "nequip", "--ckpt-dir",
-                    str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="14d"):
-        get_api(get_smoke_config("nequip"))
-    for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError, match="14c"):
-            train.main(["--device", "cpu", "--arch", arch, "--ckpt-dir",
-                        str(tmp_path)])
-
-
 def test_train_driver_on_cuda_raises_without_a_card(monkeypatch, tmp_path):
     """``--device cuda`` (the default) never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -108,15 +98,25 @@ def test_train_driver_on_cuda_raises_without_a_card(monkeypatch, tmp_path):
         train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
-def test_get_api_families():
-    lm = get_api(get_smoke_config("yi-9b"))
-    assert lm.family == "lm" and lm.opt_cfg == AdamWConfig()
-    p = lm.init_params(seed=0, device="cpu")
-    assert p["embed"].dtype == torch.bfloat16
-    rs = get_api(get_smoke_config("dien"))
-    assert rs.family == "recsys"
+@pytest.mark.parametrize("arch,family", [
+    ("yi-9b", "lm"), ("granite-moe-3b-a800m", "lm"), ("deepseek-moe-16b", "lm"),
+    ("nequip", "gnn"), ("dien", "recsys")])
+def test_get_api_families(arch, family):
+    api = get_api(get_smoke_config(arch))
+    assert api.family == family and api.opt_cfg == AdamWConfig()
+    mod = {"lm": transformer, "gnn": nequip, "recsys": recsys}[family]
     gen = torch.Generator().manual_seed(3)
-    q = rs.init_params(gen, device="cpu")
-    assert q.keys() == recsys.param_spec(rs.config).keys()
+    p = api.init_params(gen, device="cpu")
+    assert p.keys() == mod.param_spec(api.config).keys()
+    q = api.init_params(seed=3, device="cpu")
+    for (_, a), (_, b) in zip(tree_leaves(p), tree_leaves(q)):
+        assert torch.equal(a, b)
+    if family == "lm":
+        assert p["embed"].dtype == torch.bfloat16
+        assert ("dense_layers" in p) == (arch == "deepseek-moe-16b")
+        assert ("router" in p["layers"]) == api.config.moe
+
+
+def test_get_api_refuses_other_configs():
     with pytest.raises(TypeError):
         get_api(object())

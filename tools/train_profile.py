@@ -1,9 +1,12 @@
 """Where a training step's time goes on the card: smoke phase 9's two
-cells (stablelm-1.6b at 2 x 4,096 with remat, wide-deep at 65,536 rows),
-two warm-up steps each, then one step under ``torch.profiler`` and one
-timed by parts (loss + backward, the AdamW update) with CUDA syncs.
+cells (stablelm-1.6b at 2 x 4,096 with remat, wide-deep at 65,536 rows)
+and phase 10's two (granite-moe-3b-a800m at full depth and deepseek-moe-16b
+cut to 4 layers, 2 x 4,096 with remat), two warm-up
+steps each, then one step under ``torch.profiler`` and one timed by parts
+(loss + backward, the AdamW update) with CUDA syncs.
 
-    python tools/train_profile.py [--top 20] [--out train_profile.json]
+    python tools/train_profile.py [--cells stablelm,wide-deep,granite,deepseek]
+        [--top 20] [--out train_profile.json]
 
 Prints the card's name and power limit, each cell's step time, the
 device's busy time and idle share over the profiled step, and the kernels
@@ -12,6 +15,7 @@ that took the most device time. Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -104,6 +108,7 @@ def cell(name, cfg, loss_fn, batch, top):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cells", default="stablelm,wide-deep,granite,deepseek")
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -119,16 +124,26 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
-    lm = get_config("stablelm-1.6b")
     wd = get_config("wide_deep")
-    cells = [
-        cell("stablelm-1.6b 2x4096 remat", lm,
-             lambda p, b: transformer.lm_loss(lm, p, b["tokens"]),
-             {"tokens": torch.from_numpy(lm_token_batch(
-                 lm.vocab_size, 2, 4096, seed=0)).cuda()}, args.top),
-        cell("wide-deep 65536", wd, partial(recsys.loss_fn, wd),
-             recsys.batch_to(recsys_batch(wd, 65_536, seed=0), "cuda"),
-             args.top)]
+
+    def lm_cell(name, cfg):
+        return cell(f"{name} 2x4096 remat", cfg,
+                    lambda p, b: transformer.lm_loss(cfg, p, b["tokens"]),
+                    {"tokens": torch.from_numpy(lm_token_batch(
+                        cfg.vocab_size, 2, 4096, seed=0)).cuda()}, args.top)
+    makers = {
+        "stablelm": lambda: lm_cell("stablelm-1.6b",
+                                    get_config("stablelm-1.6b")),
+        "wide-deep": lambda: cell(
+            "wide-deep 65536", wd, partial(recsys.loss_fn, wd),
+            recsys.batch_to(recsys_batch(wd, 65_536, seed=0), "cuda"),
+            args.top),
+        "granite": lambda: lm_cell("granite-moe-3b-a800m",
+                                   get_config("granite-moe-3b-a800m")),
+        "deepseek": lambda: lm_cell(
+            "deepseek-moe-16b 4 layers", dataclasses.replace(
+                get_config("deepseek-moe-16b"), num_layers=4))}
+    cells = [makers[c]() for c in args.cells.split(",")]
     for c in cells:
         p = c["profile"]
         print(f"{c['cell']}: step {c['step_s']:.4f} s (loss + grads "
