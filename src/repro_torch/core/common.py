@@ -6,6 +6,8 @@ reference used ``vmap``. Sorting is always stable, so ties keep index order
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -35,21 +37,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def has_data(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds values: not a dry run's ``meta`` stand-in
+    (``launch.dryrun``)."""
+    return t.device.type != "meta"
+
+
 def tensor_from_host(a, device="cpu") -> torch.Tensor:
-    """A numpy array as a tensor on ``device``, bit for bit. A bf16 array
-    reaches numpy as ``ml_dtypes.bfloat16`` (a JAX array's) or as 2-byte
-    void (``np.load`` of such an array from an npz); ``torch.from_numpy``
-    takes neither, so the bits travel as int16 and are viewed as
+    """A numpy array as a tensor on ``device``, bit for bit, in memory of
+    its own: the port updates tensors in place (``adamw_update``), and a
+    tensor that shared the caller's buffer would rewrite the caller's array
+    (and a JAX array on the CPU that aliases it). A bf16 array reaches
+    numpy as ``ml_dtypes.bfloat16`` (a JAX array's) or as 2-byte void
+    (``np.load`` of such an array from an npz); ``torch.from_numpy`` takes
+    neither, so the bits travel as int16 and are viewed as
     ``torch.bfloat16`` again."""
     a = np.asarray(a)
-    if not (a.flags.c_contiguous and a.flags.writeable):
-        a = a.copy(order="C")          # torch tensors are always writable
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
                                       and a.dtype.itemsize == 2):
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        a = a.view(np.int16)
+        to = torch.bfloat16
     else:
+        to = None
+    with warnings.catch_warnings():    # a read-only array is only read
+        warnings.simplefilter("ignore", UserWarning)
         t = torch.from_numpy(a)
-    return t.to(resolve_device(device))
+    if to is not None:
+        t = t.view(to)
+    return t.to(resolve_device(device), copy=True)
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:

@@ -159,7 +159,7 @@ def from_arrays(d: dict, device="cuda") -> HNSWIndex:
         a = np.asarray(d[name])
         if name in dtypes:
             a = a.astype(dtypes[name], copy=False)
-        t = tensor_from_host(np.array(a, copy=True, order="C"))
+        t = tensor_from_host(a)
         out[name] = t if name == "rng" else t.to(dev)
     return HNSWIndex(**out)
 

@@ -11,6 +11,7 @@ imports on a machine without ``nvcc``. :func:`build_all` runs one
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -125,3 +126,29 @@ def check_launch(name: str, err: int) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+class _Tracing:
+    depth = 0
+
+
+@contextlib.contextmanager
+def tracing():
+    """Open while a dry run traces a step on ``meta`` tensors
+    (``launch.dryrun``): the wrappers then send a ``meta`` tensor to their
+    kernels' custom ops, whose shape functions run in place of the
+    kernels."""
+    _Tracing.depth += 1
+    try:
+        yield
+    finally:
+        _Tracing.depth -= 1
+
+
+def takes_kernel(t: torch.Tensor) -> bool:
+    """Whether a wrapper sends ``t`` to its kernel's custom op: a CUDA
+    tensor, or a dry run's ``meta`` stand-in (under ``tracing``). A
+    ``meta`` tensor outside a dry run takes neither the op nor the plain
+    version."""
+    return t.device.type == "cuda" or (t.device.type == "meta"
+                                       and bool(_Tracing.depth))

@@ -52,9 +52,17 @@ def embed_bag_backward_ref(grad_out: torch.Tensor, indices: torch.Tensor,
         cnt = torch.clamp_min(torch.sum(indices >= 0, dim=1, keepdim=True), 1)
         g = g / cnt.float()
     B, L = indices.shape
-    valid = (indices >= 0) & (indices < num_rows)
-    rows = indices.long()[valid]                                  # [n]
-    src = g[:, None, :].expand(B, L, g.shape[1])[valid]           # [n, D]
     grad = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32,
                        device=g.device)
+    if num_rows == 0:
+        return grad.to(dtype)
+    # every shape static, so a dry run traces this on stand-ins: an invalid
+    # id adds an exact zero, each to a row of its own (spread over the
+    # table, so no row takes every pad's atomic add on the card)
+    valid = ((indices >= 0) & (indices < num_rows)).reshape(B * L)
+    spread = torch.arange(B * L, device=g.device) % num_rows
+    rows = torch.where(valid, indices.long().reshape(B * L), spread)
+    src = torch.where(valid[:, None],
+                      g[:, None, :].expand(B, L, g.shape[1]).reshape(
+                          B * L, g.shape[1]), 0.0)                # [B L, D]
     return grad.index_add_(0, rows, src).to(dtype)

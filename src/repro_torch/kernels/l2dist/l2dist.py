@@ -37,9 +37,6 @@ def l2dist_cuda(X: torch.Tensor, Y: torch.Tensor,
     if X.dtype != Y.dtype or X.dtype not in _DTYPES:
         raise TypeError(f"l2dist kernel takes two float32 or two bfloat16 "
                         f"inputs, got {X.dtype} and {Y.dtype}")
-    if torch.is_grad_enabled() and (X.requires_grad or Y.requires_grad):
-        raise RuntimeError("the l2dist CUDA kernel has no backward; call "
-                           "l2dist(..., use_ref=True) to differentiate")
     nq, N = X.shape[0], Y.shape[0]
     X, Y = rows16(X, Y)
     d = X.shape[1]

@@ -1,15 +1,20 @@
 """The ``topk_dist`` wrapper: checks, the empty batch, and dispatch.
 
-A CUDA tensor launches the hand-written kernel (``topk_dist.py``) or
-raises; only a tensor that lies on the CPU takes the plain version
-(``ref.py``). There is no fallback from the kernel to the plain version.
+A CUDA tensor launches the hand-written kernel (``topk_dist.py``) through
+the custom op ``repro_torch::topk_dist``, or raises; only a tensor that
+lies on the CPU takes the plain version (``ref.py``). There is no fallback
+from the kernel to the plain version. The op's fake (a shape function for
+fake and meta tensors, never run on real data) and its FLOP formula let a
+dry run trace and count the op without launching it.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from .topk_dist import _YTYPES, topk_dist_cuda
+from .._build import takes_kernel
 from .ref import topk_dist_ref
-from .topk_dist import topk_dist_cuda
 
 _FORMS = ("l2", "ip")
 
@@ -47,13 +52,42 @@ def topk_dist(Q: torch.Tensor, Y: torch.Tensor, k: int, *,
                 torch.full((nq, k), -1, dtype=torch.int32, device=Q.device))
     if Q.device.type == "cpu":
         return topk_dist_ref(Q, Y, k, metric=metric, mask=mask)
-    if Q.device.type != "cuda":
+    if not takes_kernel(Q):
         raise ValueError(f"topk_dist runs on CUDA or CPU tensors, not "
                          f"{Q.device}")
+    return torch.ops.repro_torch.topk_dist(Q, Y, k, metric, mask)
+
+
+#: kernel launches so far (CUDA calls only; reset it to 0 to count a run)
+topk_dist.launches = 0
+
+
+@torch.library.custom_op("repro_torch::topk_dist", mutates_args=())
+def _topk_dist_op(Q: torch.Tensor, Y: torch.Tensor, k: int, metric: str,
+                  mask: torch.Tensor | None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     out = topk_dist_cuda(Q, Y, k, metric, mask)
     topk_dist.launches += 1
     return out
 
 
-#: kernel launches so far (CUDA calls only; reset it to 0 to count a run)
-topk_dist.launches = 0
+@_topk_dist_op.register_fake
+def _(Q, Y, k, metric, mask):
+    """The outputs the launcher makes, after the checks it makes: ``k``
+    columns on either route (the large-k route pads past ``N`` with
+    ``(inf, -1)``)."""
+    if Q.dtype not in _YTYPES or Y.dtype not in _YTYPES:
+        raise TypeError(f"topk_dist kernel takes float32 or bfloat16 "
+                        f"inputs, got {Q.dtype} and {Y.dtype}")
+    if k < 1:
+        raise ValueError(f"topk_dist kernel takes k >= 1, got {k}")
+    nq = Q.shape[0]
+    return (Q.new_empty((nq, k), dtype=torch.float32),
+            Q.new_empty((nq, k), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.topk_dist)
+def _topk_dist_flops(Q, Y, k, metric, mask, *args, out_shape=None,
+                     **kwargs) -> int:
+    """The contraction the kernel computes: ``2 q N d``."""
+    return 2 * Q[0] * Y[0] * Q[1]

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import GNNConfig
+from ..core.common import has_data
 from ._params import Leaf, draw_tree, normal_generator
 from .e3 import paths, real_cg, sh_torch
 
@@ -92,13 +93,15 @@ def _real_cg_on(path: tuple, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
-def _cg_table(cfg: GNNConfig, cg, device) -> dict:
-    """Each path's CG tensor on ``device``: ``cg[path]`` where given, else
-    ``e3.real_cg`` (its device copy cached)."""
+def _cg_table(cfg: GNNConfig, cg, like: torch.Tensor) -> dict:
+    """Each path's CG tensor on ``like``'s device: ``cg[path]`` where
+    given, else ``e3.real_cg`` (its device copy cached, except for a dry
+    run's stand-ins, which must not outlive the trace)."""
     cg = cg or {}
-    device = torch.device(device)
+    device = like.device
+    real = _real_cg_on if has_data(like) else _real_cg_on.__wrapped__
     return {p: (torch.as_tensor(cg[p], dtype=torch.float32, device=device)
-                if p in cg else _real_cg_on(p, device))
+                if p in cg else real(p, device))
             for p in paths(cfg.l_max)}
 
 
@@ -163,7 +166,7 @@ def forward(cfg: GNNConfig, params: dict, batch: dict, cg=None
     for l in range(1, cfg.l_max + 1):
         feats[l] = torch.zeros((n_nodes, mul, 2 * l + 1), dtype=torch.float32,
                                device=pos.device)
-    cgs = _cg_table(cfg, cg, pos.device)
+    cgs = _cg_table(cfg, cg, pos)
     for i in range(cfg.n_layers):
         feats = checkpoint(_interaction, cfg, _unstack(params["layers"], i),
                            cgs, feats, src, dst, rhat, rbf, edge_mask,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..configs.base import RecSysConfig
 from ..kernels.embed_bag import embed_bag
 from ._params import Leaf, draw_tree, normal_generator
+from ._scope import family
 
 _F32 = torch.float32
 
@@ -150,9 +151,10 @@ def _autoint_forward(cfg, p, batch):
         q = (x @ lyr["wq"]).reshape(B, F_, H, da)
         k = (x @ lyr["wk"]).reshape(B, F_, H, da)
         v = (x @ lyr["wv"]).reshape(B, F_, H, da)
-        s = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
-        a = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhfg,bghd->bfhd", a, v).reshape(B, F_, H * da)
+        with family("attention"):
+            s = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
+            a = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhfg,bghd->bfhd", a, v).reshape(B, F_, H * da)
         x = torch.relu(o + x @ lyr["wres"])
     flat = x.reshape(x.shape[0], -1)
     user = _apply(p["user_proj"], flat)
@@ -211,9 +213,10 @@ def _sasrec_encode(cfg, p, seq_ids):
         # no bias; eps inside the square root, as the reference's norm
         h = F.layer_norm(x, (D,), blk["ln1"], None, 1e-6)
         q, k, v = h @ blk["wq"], h @ blk["wk"], h @ blk["wv"]
-        s = torch.einsum("btd,bsd->bts", q, k) / math.sqrt(D)
-        s = s.masked_fill(~keep, -1e30)
-        x = x + torch.einsum("bts,bsd->btd", torch.softmax(s, -1), v)
+        with family("attention"):
+            s = torch.einsum("btd,bsd->bts", q, k) / math.sqrt(D)
+            s = s.masked_fill(~keep, -1e30)
+            x = x + torch.einsum("bts,bsd->btd", torch.softmax(s, -1), v)
         h = F.layer_norm(x, (D,), blk["ln2"], None, 1e-6)
         x = x + _mlp(blk["ff"], h)
     return x * mask[..., None]                                   # [B, T, D]

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ._params import Leaf, draw_tree, normal_generator
+from ._scope import family
 from .recsys import topk_lowest_index
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -165,12 +166,13 @@ def _attn_core(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                positions: torch.Tensor, kv_positions: torch.Tensor,
                causal: bool, hd: int) -> torch.Tensor:
     """Dense attention over one query block. qg: [B, s, KV, G, hd]."""
-    scores = _einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
-    if causal:
-        mask = positions[:, :, None] >= kv_positions[:, None, :]  # [B, s, T]
-        scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
-    attn = torch.softmax(scores, dim=-1).to(qg.dtype)
-    return _einsum("bkgst,btkh->bskgh", attn, v)                 # [B,s,KV,G,hd]
+    with family("attention"):
+        scores = _einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
+        if causal:
+            mask = positions[:, :, None] >= kv_positions[:, None, :]
+            scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+        attn = torch.softmax(scores, dim=-1).to(qg.dtype)
+        return _einsum("bkgst,btkh->bskgh", attn, v)             # [B,s,KV,G,hd]
 
 
 def gqa_attention(cfg: LMConfig, lp: dict, x: torch.Tensor,

@@ -24,6 +24,7 @@ import math
 import torch
 
 from .._tree import tree_leaves, tree_map
+from ..core.common import has_data
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +115,10 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
 
         # ``torch.add(a, b, alpha=c)`` is one fused multiply-add, as XLA
         # fuses ``c * b + a``: the same roundings as the reference, and no
-        # temporary for the product. The last one needs ``lr`` as a number.
-        lr_f = float(lr)
+        # temporary for the product. The last one needs ``lr`` as a number;
+        # a dry run's stand-in ``lr`` has none, and any number makes the
+        # same operations.
+        lr_f = float(lr) if has_data(lr) else cfg.lr
 
         def upd(g, m, v, p):
             """The new ``m``, ``v`` and ``p`` written into ``m``, ``v`` and

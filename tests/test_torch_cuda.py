@@ -492,3 +492,73 @@ def test_moe_dispatch_on_the_card_matches_the_per_expert_loop(cuda, arch, T):
             y4, _ = transformer.moe_ffn(cfg, lp, xt)
         torch.testing.assert_close(y4.float(), y.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dt", [("topk_dist", torch.float32),
+                                     ("topk_dist_large_k", torch.float32),
+                                     ("topk_dist", torch.bfloat16),
+                                     ("l2dist", torch.float32),
+                                     ("l2dist", torch.bfloat16),
+                                     ("embed_bag", torch.float32)])
+def test_custom_op_matches_plain_and_its_fake(cuda, name, dt):
+    """Each kernel's custom op (``torch.ops.repro_torch.<name>``) on the
+    card equals its plain version, and its fake (on ``meta`` stand-ins in
+    a dry run) gives the real outputs' shapes and dtypes."""
+    from repro_torch.kernels._build import tracing
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ops = torch.ops.repro_torch
+    if name == "embed_bag":
+        table = torch.randn(600, 16, device=cuda, generator=g)
+        ids = torch.randint(-1, 600, (40, 12), device=cuda, generator=g)
+        args, plain = (table, ids, "mean"), embed_bag_ref(table, ids, "mean")
+        op = ops.embed_bag
+    else:
+        Q = torch.randn(8, 32, device=cuda, generator=g)
+        Y = torch.randn(1000, 32, device=cuda, generator=g).to(dt)
+        if name == "l2dist":
+            args = (Q.to(dt), Y, "l2")
+            plain, op = l2dist_ref(*args[:2], metric="l2"), ops.l2dist
+        else:
+            k = 200 if name.endswith("large_k") else 10
+            args, op = (Q, Y, k, "l2", None), ops.topk_dist
+            plain = topk_dist_ref(Q, Y, k, metric="l2")
+    real = op(*args)
+    if name.startswith("topk_dist"):
+        _check(*real, *plain)
+    else:
+        torch.testing.assert_close(real, plain, rtol=1e-4, atol=1e-4)
+    outs = real if isinstance(real, tuple) else (real,)
+    with tracing():
+        meta = op(*[torch.empty(a.shape, dtype=a.dtype, device="meta")
+                    if isinstance(a, torch.Tensor) else a for a in args])
+    meta = meta if isinstance(meta, tuple) else (meta,)
+    assert [(t.shape, t.dtype) for t in meta] == [(t.shape, t.dtype)
+                                                  for t in outs]
+
+
+@pytest.mark.gpu
+def test_real_wide_deep_step_counts_what_its_trace_counts(cuda):
+    """One real train step of wide-deep (smoke config, 256 rows, the bag
+    on ``embed_bag``) under the dry run's counting mode: its FLOPs equal
+    the trace's on ``meta`` stand-ins."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import recsys_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_api, recsys
+    from repro_torch.train import adamw_init
+    cfg = get_smoke_config("wide_deep")
+    api = get_api(cfg)
+    bundle = api.make_step(ShapeSpec("train_batch", "train", batch=256))
+    params = api.init_params(seed=0, device=cuda)
+    batch = recsys.batch_to(recsys_batch(cfg, 256, seed=0), cuda)
+    args = [params, adamw_init(params), batch]
+    shapes = dryrun.shapes_of(args)
+    real = dryrun.count_step(bundle.fn, args)
+    trace = dryrun.trace_step(bundle.fn, shapes)
+    assert trace["cost"]["flops"] == real["cost"]["flops"]
+    assert trace["cost"]["flops_by_family"] == \
+        real["cost"]["flops_by_family"]
+    assert real["cost"]["flops_by_family"]["embed_bag"] == \
+        256 * cfg.bag_len * cfg.embed_dim

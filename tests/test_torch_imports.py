@@ -32,7 +32,8 @@ PORTED = ["core/maintenance.py", "api/facade.py", "api/__init__.py",
           "models/api.py", "train/__init__.py", "train/optimizer.py",
           "train/compress.py", "train/checkpoint.py", "launch/train.py",
           "_tree.py", "models/dist_ctx.py", "models/e3.py",
-          "models/nequip.py", "models/gnn_common.py"]
+          "models/nequip.py", "models/gnn_common.py", "models/_scope.py",
+          "launch/dryrun.py"]
 KERNELS = ["topk_dist", "l2dist", "embed_bag"]
 
 

@@ -532,3 +532,39 @@ def test_donated_update_is_the_same_update_in_place():
             assert torch.equal(a[1], b[1]), a[0]
         assert torch.equal(s1["step"], s2["step"])
         assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+
+
+def _aligned_f32(n, align=64):
+    """``n`` f32 values whose data lies at a multiple of ``align`` bytes
+    (a slice of an over-allocated buffer): JAX on the CPU aliases such an
+    array rather than copying it."""
+    buf = np.empty(n + align // 4, np.float32)
+    off = (-buf.ctypes.data % align) // 4
+    a = buf[off:off + n]
+    assert a.ctypes.data % align == 0
+    a[:] = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    return a
+
+
+def test_inplace_update_leaves_the_callers_arrays_alone():
+    """A step of the port's in-place AdamW on tensors made from numpy
+    arrays changes neither the arrays nor a JAX array over the same
+    buffer: the port updates memory of its own, whatever the reference
+    does with its copy of the array at the same time."""
+    a = _aligned_f32(40)
+    before = a.copy()
+    ja = jnp.asarray(a)                  # may share ``a``'s buffer
+    params = _t({"w": a})
+    state = adamw_state_from_reference(
+        {"m": {"w": np.zeros(40, np.float32)},
+         "v": {"w": np.zeros(40, np.float32)},
+         "step": np.zeros((), np.int32)}, "cpu")
+    grads = {"w": torch.ones(40)}
+    params, state, _ = adamw_update(AdamWConfig(warmup_steps=1), grads,
+                                    state, params)
+    assert not torch.equal(params["w"], torch.from_numpy(before))
+    np.testing.assert_array_equal(a, before)
+    np.testing.assert_array_equal(np.asarray(ja), before)
+    from repro_torch.core.common import tensor_from_host
+    t = tensor_from_host(a)
+    assert t.untyped_storage().data_ptr() != a.ctypes.data
