@@ -6,7 +6,7 @@
 Phases, each of which exits nonzero on failure:
 
   1. the card's name and power limit, the torch version, and the build of
-     the three CUDA kernels from ``src/repro_torch/kernels`` (one ``nvcc``
+     the four CUDA kernels from ``src/repro_torch/kernels`` (one ``nvcc``
      each, all at once), with each kernel's ``ptxas`` registers;
   2. each kernel against its plain PyTorch version on the card, with times,
      the bound and a library yardstick: ``topk_dist`` (l2 and ip, the
@@ -23,7 +23,9 @@ Phases, each of which exits nonzero on failure:
      mean, plus the test shapes, and phase 8's 262,144 bags of 32, whose
      times the kernel report gives, with the lane-group layout it took);
      each wrapper is first driven through its public entry point at those
-     shapes, and its launches counted;
+     shapes, and its launches counted; and ``count_flags`` at the search
+     cells' visited flags, 32,768 x 262,145 (8.6 GB), exact against a
+     plain count taken 1,024 lanes at a time, with its time;
   3. the main path at the paper's SIFT1M shape: wave build, 5 rounds of 1%
      MN-RU-gamma churn, queries (graph and exact tier) with recall against
      the kernel's exact ground truth, unreachable counts, then a backup
@@ -556,6 +558,40 @@ def embed_bag_phase(V=1_000_000, D=32, B=4096, L=32, pad=0.1):
                                       "bound_by", "library_ms")}}
     return report, {"bags_4096": small, "serve_bulk": bulk,
                     "lane_layout": layout}
+
+
+def count_flags_phase(B=32_768, N=262_144, share=0.01, seed=0):
+    """``count_flags`` on the flags the lockstep search marks at the search
+    cells' shape: ``[B, N + 1]`` bool (column N is the sink, set in every
+    third row and not counted), exact against a plain count taken 1,024
+    lanes at a time, one launch by the wrapper's counter, and its device
+    time beside the bytes' time at HBM rate."""
+    import torch
+    from repro_torch.kernels.count_flags import count_flags
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.empty((B, N + 1), dtype=torch.bool, device=dev)
+    for i in range(0, B, 1024):
+        v[i:i + 1024] = torch.rand((min(1024, B - i), N + 1), device=dev,
+                                   generator=g) < share
+    v[::3, N] = True
+    want = sum(int(v[i:i + 1024, :N].sum()) for i in range(0, B, 1024))
+    count_flags.launches = 0
+    got = count_flags(v, N)
+    check(count_flags.launches == 1,
+          f"count_flags launched {count_flags.launches} times, not once")
+    check(got.dtype == torch.int64 and int(got) == want,
+          f"count_flags read {int(got)} set flags, the plain count {want}")
+    ms = cuda_ms(lambda: count_flags(v, N), reps=5)
+    bound_ms = v.numel() / PEAK_BYTES * 1e3
+    log(f"count_flags {B} x {N + 1}: {int(got)} set, equal to the plain "
+        f"count; {ms:.4f} ms ({v.numel() / ms / 1e6:.0f} GB/s; bound "
+        f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.0f}%)")
+    del v
+    torch.cuda.empty_cache()
+    return {"shape": [B, N + 1], "count": int(got), "plain": want,
+            "ms": ms, "bound_ms": bound_ms,
+            "launches": count_flags.launches}
 
 
 def op_overhead(reps=300):
@@ -2958,15 +2994,16 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.count_flags.count_flags import LIBRARY as CF_LIB
     from repro_torch.kernels.embed_bag.embed_bag import LIBRARY as EB_LIB
     from repro_torch.kernels.l2dist.l2dist import LIBRARY as L2_LIB
     from repro_torch.kernels.topk_dist import topk_dist
     from repro_torch.kernels.topk_dist.topk_dist import LIBRARY as TK_LIB
     phase_s = {}
     t = time.perf_counter()
-    build_all([TK_LIB, L2_LIB, EB_LIB])
+    build_all([TK_LIB, L2_LIB, EB_LIB, CF_LIB])
     phase_s["1_build"] = time.perf_counter() - t
-    for lib in (TK_LIB, L2_LIB, EB_LIB):
+    for lib in (TK_LIB, L2_LIB, EB_LIB, CF_LIB):
         log(f"{lib.name} kernel built in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
@@ -2987,6 +3024,7 @@ def main(argv=None) -> int:
     report, results["topk_dist"] = timed("2_topk_dist", kernel_phase, args.n)
     l2_report, results["l2dist"] = timed("2_l2dist", l2dist_phase, args.n)
     eb_report, results["embed_bag"] = timed("2_embed_bag", embed_bag_phase)
+    results["count_flags"] = timed("2_count_flags", count_flags_phase)
     results["op_overhead_us"] = timed("2_op_overhead", op_overhead)
 
     topk_dist.launches = Live.truth_launches = 0

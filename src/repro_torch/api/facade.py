@@ -35,11 +35,13 @@ Design notes:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.common import pow2_at_least, resolve_device
 from ..core.hnsw import build
 from ..core.index import (HNSWIndex, HNSWParams, empty_index, from_arrays,
@@ -55,9 +57,20 @@ from ..core.reach import count_unreachable
 from ..core.strategies import get_strategy
 from ..core.update import (OP_DELETE, OP_INSERT, OP_NOP, OP_REPLACE,
                            apply_update_batch, num_deleted)
+from ..serving.metrics import MetricsRegistry
 
 _SAVE_VERSION = 1
 _MAX_TAPE = 128          # sequential-route tape chunk (pow2)
+
+
+def _recorded(method):
+    """Run a facade method with the index's registry current, so the
+    core's spans land in ``self.metrics``."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with spans.use(self.metrics):
+            return method(self, *args, **kwargs)
+    return call
 
 
 class VectorIndex:
@@ -65,7 +78,9 @@ class VectorIndex:
 
     Constructor arguments mirror hnswlib's ``Index(space, dim)`` +
     ``init_index``; :func:`create` is the one-call convenience wrapper.
-    ``device`` (default ``"cuda"``) is where the index lives.
+    ``device`` (default ``"cuda"``) is where the index lives. ``metrics``
+    records the spans of the facade's calls and of the core below them;
+    an engine from ``serve()`` keeps a registry of its own.
     """
 
     def __init__(self, space: str = "l2", dim: int = 0, capacity: int = 1024,
@@ -95,6 +110,7 @@ class VectorIndex:
             self.params, pow2_at_least(capacity), dim, seed, dtype=dtype,
             device=resolve_device(device))
         self._next_label = _next_label
+        self.metrics = MetricsRegistry()
 
     # -- introspection ------------------------------------------------------
 
@@ -225,12 +241,17 @@ class VectorIndex:
 
     # -- writes -------------------------------------------------------------
 
+    @_recorded
     def add_items(self, X, labels=None) -> np.ndarray:
         """Insert new points; auto-grows past capacity. Returns the labels.
 
         ``labels`` defaults to an auto-incrementing counter. Labels must be
         fresh — use :meth:`replace_items` to overwrite an existing label.
         """
+        with spans.span("index.add_items"):
+            return self._add_items(X, labels)
+
+    def _add_items(self, X, labels) -> np.ndarray:
         X = self._prep_vectors(X)
         n = X.shape[0]
         if n == 0:
@@ -261,6 +282,7 @@ class VectorIndex:
         self._maybe_maintain(n)
         return labels
 
+    @_recorded
     def mark_deleted(self, labels) -> None:
         """markDelete: flag points; they stay traversable until replaced
         (or until maintenance consolidates them away)."""
@@ -269,6 +291,7 @@ class VectorIndex:
                          np.zeros((len(labels), self.dim), np.float32))
         self._maybe_maintain(len(labels))
 
+    @_recorded
     def replace_items(self, X, labels) -> np.ndarray:
         """replaced_update (paper Alg. 2+3): each point reuses a deleted slot
         with strategy-driven neighbourhood repair, falling back to a fresh
@@ -312,6 +335,7 @@ class VectorIndex:
         self._index = resize_index(self._index, new_cap)
         return self.capacity
 
+    @_recorded
     def compact(self, capacity: int | None = None) -> int:
         """Full blocking rebuild over live points only
         (:func:`~repro_torch.core.maintenance.rebuild_index`); the capacity
@@ -325,11 +349,13 @@ class VectorIndex:
 
     # -- maintenance --------------------------------------------------------
 
+    @_recorded
     def health(self) -> IndexHealth:
         """The :class:`~repro_torch.core.maintenance.IndexHealth` report;
         ``health().asdict()`` gives plain python scalars."""
         return index_health(self._index)
 
+    @_recorded
     def consolidate(self) -> int:
         """Batched delete consolidation
         (:func:`~repro_torch.core.maintenance.consolidate_deletes`): repair
@@ -340,6 +366,7 @@ class VectorIndex:
         consolidate_deletes(self.params, self._index)
         return reclaimed
 
+    @_recorded
     def repair_unreachable(self, max_passes: int = 3) -> int:
         """Re-link unreachable live points, re-checking between sweeps,
         until the paper's Definition-1 count hits zero or ``max_passes``
@@ -364,6 +391,7 @@ class VectorIndex:
             allow = live & np.isin(idx_labels, allowed)
         return allow
 
+    @_recorded
     def knn_query(self, Q, k: int = 10, ef: int | None = None,
                   filter=None, mode: str = "auto"
                   ) -> tuple[np.ndarray, np.ndarray]:
@@ -376,22 +404,32 @@ class VectorIndex:
         allowed labels or a ``label -> bool`` callable — applied inside the
         beam search or the kernel's running top-k. Distances are in the
         index's metric; missing results pad with label -1 / dist inf.
+
+        Its span, ``index.knn_query``, carries the planner's decision
+        (``tier``, ``reason``) and ``allowed`` (the slots the filter
+        allows; -1 without a filter).
         """
-        Q = self._prep_vectors(Q)
-        ef = max(ef if ef is not None else self.params.ef_search, k)
-        allow = None
-        if filter is not None:
-            mask = self._filter_to_slot_mask(filter)
-            # selective predicates thin the result beam — widen ef by the
-            # inverse selectivity (pow2, capped at 4x)
-            n_allowed = max(int(mask.sum()), 1)
-            boost = pow2_at_least(-(-self.capacity // n_allowed))
-            ef = min(ef * min(boost, 4), pow2_at_least(self.capacity))
-            allow = torch.from_numpy(mask).to(self.device)
-        labels, _, dists, _ = plan_and_search(
-            self.params, self._index, torch.from_numpy(Q).to(self.device), k,
-            ef, allow, mode=mode, config=self.planner)
-        return labels.cpu().numpy(), dists.cpu().numpy()
+        with spans.span("index.knn_query", k=k) as sp:
+            Q = self._prep_vectors(Q)
+            ef = max(ef if ef is not None else self.params.ef_search, k)
+            allow = None
+            n_allowed = -1
+            if filter is not None:
+                with spans.span("index.filter_mask"):
+                    mask = self._filter_to_slot_mask(filter)
+                # selective predicates thin the result beam — widen ef by
+                # the inverse selectivity (pow2, capped at 4x)
+                n_allowed = int(mask.sum())
+                boost = pow2_at_least(-(-self.capacity // max(n_allowed, 1)))
+                ef = min(ef * min(boost, 4), pow2_at_least(self.capacity))
+                allow = torch.from_numpy(mask).to(self.device)
+            labels, _, dists, decision = plan_and_search(
+                self.params, self._index,
+                torch.from_numpy(Q).to(self.device), k, ef, allow, mode=mode,
+                config=self.planner)
+            sp.set(q=Q.shape[0], ef=ef, tier=decision.tier,
+                   reason=decision.reason, allowed=n_allowed)
+            return labels.cpu().numpy(), dists.cpu().numpy()
 
     def plan(self, filter=None) -> PlanDecision:
         """Explain what ``knn_query(mode="auto")`` would do right now."""

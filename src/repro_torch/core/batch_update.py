@@ -36,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import spans
 from .common import (INF, INVALID, dedup_ids, nonzero_padded, pow2_at_least,
                      resolve_device, stable_argsort, storage_tensor)
 from .hnsw import _pad_row, insert
@@ -128,6 +129,12 @@ def compile_tape(ops, labels, X, *, built: int, min_wave: int = MIN_WAVE,
     ``built`` is the current allocated-slot count — wave ``k``'s width is
     ``min(remaining, max(min_wave, graph_size_so_far), max_wave)``.
     """
+    with spans.span("wave.compile"):
+        return _compile_tape(ops, labels, X, built, min_wave, max_wave)
+
+
+def _compile_tape(ops, labels, X, built: int, min_wave: int,
+                  max_wave: int) -> WavePlan:
     ops = np.asarray(ops, np.int32).reshape(-1)
     labels = np.asarray(labels, np.int32).reshape(-1)
     X = np.asarray(X, np.float32)
@@ -491,90 +498,94 @@ def _apply_wave(params: HNSWParams, index: HNSWIndex, ops: torch.Tensor,
         start_d = start_f = 0
 
     # --- vectorized slot assignment (distinct slots per wave member) -------
-    is_replace = ops == OP_REPLACE
-    is_write = is_replace | (ops == OP_INSERT)
-    live_del = index.deleted & (index.levels >= 0)
-    free = index.levels < 0
-    del_order, n_del = _ranked_slots(live_del, start_d)
-    free_order, n_free = _ranked_slots(free, start_f)
+    with spans.span("wave.slots"):
+        is_replace = ops == OP_REPLACE
+        is_write = is_replace | (ops == OP_INSERT)
+        live_del = index.deleted & (index.levels >= 0)
+        free = index.levels < 0
+        del_order, n_del = _ranked_slots(live_del, start_d)
+        free_order, n_free = _ranked_slots(free, start_f)
 
-    r_idx = torch.cumsum(is_replace.long(), 0) - 1
-    reuse_rep = is_replace & (r_idx < n_del)
-    needs_free = is_write & ~reuse_rep
-    f_idx = torch.cumsum(needs_free.long(), 0) - 1
-    got_free = needs_free & (f_idx < n_free)
-    # capacity-pressure fallback: a write with no free slot left reuses a
-    # deleted slot the replaces didn't claim
-    n_rep_used = torch.minimum(is_replace.long().sum(), n_del)
-    need_fb = needs_free & ~got_free
-    fb_idx = torch.cumsum(need_fb.long(), 0) - 1
-    got_fb = need_fb & (n_rep_used + fb_idx < n_del)
-    reuse = reuse_rep | got_fb            # both inherit the slot's level
-    pid = torch.where(
-        reuse_rep, del_order[r_idx.clamp(0, N - 1)],
-        torch.where(got_free, free_order[f_idx.clamp(0, N - 1)],
-                    torch.where(got_fb,
-                                del_order[(n_rep_used + fb_idx).clamp(0,
-                                                                      N - 1)],
-                                INVALID)))
-    active = is_write & (pid >= 0)        # an exhausted index drops the op
+        r_idx = torch.cumsum(is_replace.long(), 0) - 1
+        reuse_rep = is_replace & (r_idx < n_del)
+        needs_free = is_write & ~reuse_rep
+        f_idx = torch.cumsum(needs_free.long(), 0) - 1
+        got_free = needs_free & (f_idx < n_free)
+        # capacity-pressure fallback: a write with no free slot left reuses
+        # a deleted slot the replaces didn't claim
+        n_rep_used = torch.minimum(is_replace.long().sum(), n_del)
+        need_fb = needs_free & ~got_free
+        fb_idx = torch.cumsum(need_fb.long(), 0) - 1
+        got_fb = need_fb & (n_rep_used + fb_idx < n_del)
+        reuse = reuse_rep | got_fb        # both inherit the slot's level
+        fb_slot = del_order[(n_rep_used + fb_idx).clamp(0, N - 1)]
+        pid = torch.where(
+            reuse_rep, del_order[r_idx.clamp(0, N - 1)],
+            torch.where(got_free, free_order[f_idx.clamp(0, N - 1)],
+                        torch.where(got_fb, fb_slot, INVALID)))
+        active = is_write & (pid >= 0)    # an exhausted index drops the op
 
-    # --- levels: replaces inherit (paper Algorithm 3) -----------------------
-    fresh_lvl = torch.tensor(np.asarray(fresh_lvl), dtype=torch.int32,
-                             device=dev)
-    lvl = torch.where(reuse, index.levels[pid.clamp_min(0)], fresh_lvl)
-    lvl = torch.where(active, lvl, -1)
+        # --- levels: replaces inherit (paper Algorithm 3) -------------------
+        fresh_lvl = torch.tensor(np.asarray(fresh_lvl), dtype=torch.int32,
+                                 device=dev)
+        lvl = torch.where(reuse, index.levels[pid.clamp_min(0)], fresh_lvl)
+        lvl = torch.where(active, lvl, -1)
 
-    xq = X.to(index.vectors.dtype)
-    a_pid = pid[active]
-    index.vectors[a_pid] = xq[active]
-    index.labels[a_pid] = labels[active].to(torch.int32)
-    index.levels[a_pid] = lvl[active].to(torch.int32)
-    index.deleted[a_pid] = False
+        xq = X.to(index.vectors.dtype)
+        a_pid = pid[active]
+        index.vectors[a_pid] = xq[active]
+        index.labels[a_pid] = labels[active].to(torch.int32)
+        index.levels[a_pid] = lvl[active].to(torch.int32)
+        index.deleted[a_pid] = False
 
     # --- batched strategy repair around the replaced slots -----------------
     nbrs = index.neighbors
     if do_repair:
-        R = _scatter_mask(pid, reuse, N)
-        r_list = nonzero_padded(R, min(N, W), N)
-        alive = (index.levels >= 0) & ~index.deleted
-        for layer in range(L):
-            _repair_wave_layer(params, nbrs[layer], index.vectors, alive, R,
-                               r_list, strategy, layer)
+        with spans.span("wave.repair"):
+            R = _scatter_mask(pid, reuse, N)
+            r_list = nonzero_padded(R, min(N, W), N)
+            alive = (index.levels >= 0) & ~index.deleted
+            for layer in range(L):
+                _repair_wave_layer(params, nbrs[layer], index.vectors, alive,
+                                   R, r_list, strategy, layer)
 
     # --- candidate generation + α-RNG neighbour selection ------------------
-    if candidates == "scan":
-        sel_layers = _scan_candidates(params, index.vectors, index.levels,
-                                      index.deleted, xq, pid, lvl, active,
-                                      index.max_layer)
-    else:
-        sel_layers = _beam_candidates(params, index, xq, pid, lvl, active)
+    with spans.span("wave.candidates"):
+        if candidates == "scan":
+            sel_layers = _scan_candidates(params, index.vectors,
+                                          index.levels, index.deleted, xq,
+                                          pid, lvl, active, index.max_layer)
+        else:
+            sel_layers = _beam_candidates(params, index, xq, pid, lvl,
+                                          active)
 
     # --- vectorized commit: forward scatter + segment-resolved reverse -----
-    for layer, m_l, sel, seld, act_l in sel_layers:
-        layer_nbrs = nbrs[layer]
-        layer_nbrs[pid[act_l]] = _pad_row(sel[act_l], M0).to(
-            layer_nbrs.dtype)
-        pair_ok = act_l[:, None] & (sel >= 0)
-        # a target takes at most m_l/2 new reverse edges per wave (nearest
-        # first); only lanes that can be active at this layer contribute
-        lanes = W if layer == 0 else _upper_cap(W, params.M, layer)
-        new_ids, new_d = _group_pairs_by_target(
-            torch.where(pair_ok, sel, N).reshape(-1),
-            pid[:, None].expand(sel.shape).reshape(-1),
-            torch.where(pair_ok, seld, INF).reshape(-1), N,
-            max(m_l // 2, 4))
-        _merge_reverse_layer(params, layer_nbrs, index.vectors, new_ids,
-                             new_d, lanes * m_l, layer)
+    with spans.span("wave.commit"):
+        for layer, m_l, sel, seld, act_l in sel_layers:
+            layer_nbrs = nbrs[layer]
+            layer_nbrs[pid[act_l]] = _pad_row(sel[act_l], M0).to(
+                layer_nbrs.dtype)
+            pair_ok = act_l[:, None] & (sel >= 0)
+            # a target takes at most m_l/2 new reverse edges per wave
+            # (nearest first); only lanes that can be active at this layer
+            # contribute
+            lanes = W if layer == 0 else _upper_cap(W, params.M, layer)
+            new_ids, new_d = _group_pairs_by_target(
+                torch.where(pair_ok, sel, N).reshape(-1),
+                pid[:, None].expand(sel.shape).reshape(-1),
+                torch.where(pair_ok, seld, INF).reshape(-1), N,
+                max(m_l // 2, 4))
+            _merge_reverse_layer(params, layer_nbrs, index.vectors,
+                                 new_ids, new_d, lanes * m_l, layer)
 
-    # --- entry / max_layer / count invariants ------------------------------
-    masked = torch.where(active, lvl, -1)
-    wave_max = masked.max()
-    top = pid[masked.argmax()]
-    grow = wave_max > index.max_layer
-    index.entry.copy_(torch.where(grow, top, index.entry))
-    index.max_layer.copy_(torch.maximum(index.max_layer, wave_max))
-    index.count += torch.sum(active & ~reuse).to(torch.int32)
+        # --- entry / max_layer / count invariants --------------------------
+        masked = torch.where(active, lvl, -1)
+        wave_max = masked.max()
+        top = pid[masked.argmax()]
+        grow = wave_max > index.max_layer
+        index.entry.copy_(torch.where(grow, top, index.entry))
+        index.max_layer.copy_(torch.maximum(index.max_layer, wave_max))
+        index.count += torch.sum(active & ~reuse).to(torch.int32)
     return index
 
 
@@ -606,7 +617,8 @@ def apply_plan(params: HNSWParams, index: HNSWIndex, plan: WavePlan,
     dev = index.device
     draws = iter(draws) if draws is not None else None
     if plan.num_deletes:
-        _apply_deletes(index, torch.as_tensor(plan.del_labels).to(dev))
+        with spans.span("wave.deletes"):
+            _apply_deletes(index, torch.as_tensor(plan.del_labels).to(dev))
     waves = list(plan.waves)
     allocated = int(index.count)    # ONE host sync; waves book-keep below
     if waves and allocated == 0:
@@ -641,10 +653,11 @@ def apply_plan(params: HNSWParams, index: HNSWIndex, plan: WavePlan,
             draw = (reuse_cursor(index, generator),
                     reuse_cursor(index, generator),
                     sample_levels(generator, params, W))
-        _apply_wave(params, index, torch.as_tensor(ops_p).to(dev),
-                    torch.as_tensor(_pad_pow2(labels_w, -1)).to(dev),
-                    torch.as_tensor(_pad_pow2(X_w, 0.0)).to(dev),
-                    variant, rotate_slots, may_reuse, tier, draw)
+        with spans.span("wave", W=W, tier=tier):
+            _apply_wave(params, index, torch.as_tensor(ops_p).to(dev),
+                        torch.as_tensor(_pad_pow2(labels_w, -1)).to(dev),
+                        torch.as_tensor(_pad_pow2(X_w, 0.0)).to(dev),
+                        variant, rotate_slots, may_reuse, tier, draw)
         allocated = min(N, allocated + len(ops_w))
     return index
 

@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from . import spans
 from .common import INF, INVALID, pow2_at_least, stable_argsort
 from .hnsw import _pad_row, build
 from .index import HNSWIndex, HNSWParams, empty_index
@@ -93,7 +94,12 @@ class IndexHealth:
 
 def index_health(index: HNSWIndex) -> IndexHealth:
     """Gather the :class:`IndexHealth` report: a handful of O(N) reductions
-    plus the BFS reachability sweep."""
+    plus the BFS reachability sweep (the span ``maintain.consult``)."""
+    with spans.span("maintain.consult"):
+        return _index_health(index)
+
+
+def _index_health(index: HNSWIndex) -> IndexHealth:
     dev = index.device
     alloc = index.levels >= 0
     live = alloc & ~index.deleted
@@ -169,8 +175,14 @@ def consolidate_deletes(params: HNSWParams, index: HNSWIndex) -> HNSWIndex:
 
     Idempotent: with no mark-deleted slots the index is left untouched.
     Consolidation can orphan a point whose only in-edges ran through ``D``
-    — run :func:`repair_unreachable` after (the policy driver does).
+    — run :func:`repair_unreachable` after (the policy driver does). The
+    pass is the span ``maintain.consolidate``.
     """
+    with spans.span("maintain.consolidate"):
+        return _consolidate_deletes(params, index)
+
+
+def _consolidate_deletes(params: HNSWParams, index: HNSWIndex) -> HNSWIndex:
     del_mask = index.deleted & (index.levels >= 0)
     if not bool(del_mask.any()):
         return index
@@ -254,14 +266,16 @@ def repair_unreachable(params: HNSWParams, index: HNSWIndex) -> HNSWIndex:
     reference's: repairing point A can, rarely, prune point B's last
     in-edge in its reverse-edge pass, so callers that need Definition-1 ==
     0 loop this pass (see :func:`run_maintenance` and
-    ``VectorIndex.repair_unreachable``).
+    ``VectorIndex.repair_unreachable``). The sweep is the span
+    ``maintain.repair``.
     """
     from .update import _update_reinsert
 
-    mask = indegree_unreachable(index) | bfs_unreachable(index)
-    for pid in torch.nonzero(mask).reshape(-1).tolist():
-        _update_reinsert(params, index, pid, params.alpha)
-        _ensure_in_edge(params, index, pid)
+    with spans.span("maintain.repair"):
+        mask = indegree_unreachable(index) | bfs_unreachable(index)
+        for pid in torch.nonzero(mask).reshape(-1).tolist():
+            _update_reinsert(params, index, pid, params.alpha)
+            _ensure_in_edge(params, index, pid)
     return index
 
 

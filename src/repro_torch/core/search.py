@@ -15,14 +15,23 @@ done" on the host every few steps. Results equal the per-query loop's.
 Filtered search: an optional slot-level ``allow`` mask threads a second
 fixed-size beam through the traversal — the walk still expands through
 disallowed points, but only allowed points enter the result beam.
+
+Spans (``core.spans``): ``search.descend`` (``steps``: greedy steps summed
+over its layers) and one ``search.layer`` per :func:`search_layer` call
+(``layer``, ``lanes``, ``ef``, ``steps``: the loop's count; while a
+profiler records, ``rows_visited``: the rows the lanes marked visited, a
+0-d device tensor from ``kernels.count_flags``, one launch and no host
+sync).
 """
 from __future__ import annotations
 
 import torch
 
+from . import spans
 from .common import INF, INVALID, stable_argsort
 from .index import HNSWIndex, HNSWParams
 from .metrics import dist_point
+from ..kernels.count_flags import count_flags
 
 #: lockstep loops test "all lanes done" on the host once per this many steps
 CHECK_EVERY = 8
@@ -39,6 +48,13 @@ def greedy_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
                  active: torch.Tensor | None = None) -> torch.Tensor:
     """ef=1 greedy descent within one layer for every lane of ``Q[B, d]``;
     returns the improved entry points ``[B]`` (inactive lanes keep ``ep``)."""
+    return _greedy_steps(params, index, Q, ep, layer, active)[0]
+
+
+def _greedy_steps(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
+                  ep: torch.Tensor, layer: int,
+                  active: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """:func:`greedy_layer`, and the steps its loop ran."""
     nbrs_l = index.neighbors[layer]
     B = Q.shape[0]
     rows = torch.arange(B, device=Q.device)
@@ -61,7 +77,7 @@ def greedy_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
         cur_d = torch.where(imp, best_d, cur_d)
         running = imp
         step += 1
-    return cur
+    return cur, step
 
 
 def search_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
@@ -76,6 +92,13 @@ def search_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
     filters deleted ids out of results. With ``allow`` (bool[N] slot mask)
     traversal is unchanged but the returned beam holds only allowed slots.
     """
+    with spans.span("search.layer", layer=layer, lanes=Q.shape[0],
+                    ef=ef) as sp:
+        return _search_layer(params, index, Q, ep, layer, ef, max_steps,
+                             allow, sp)
+
+
+def _search_layer(params, index, Q, ep, layer, ef, max_steps, allow, sp):
     N = index.capacity
     B = Q.shape[0]
     dev = Q.device
@@ -102,11 +125,13 @@ def search_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
         res_i[:, 0] = torch.where(ep_ok, ep, INVALID)
     no_exp = torch.zeros((B, M0), dtype=torch.bool, device=dev)
 
+    steps = steps_cap
     for step in range(steps_cap):
         f = torch.where(expanded | (ids < 0), INF, dists)
         fmin, i = f.min(dim=1)
         running = fmin < INF
         if step % CHECK_EVERY == 0 and not bool(running.any()):
+            steps = step
             break
         cur = ids[rows, i].clamp_min(0)
         expanded[rows, i] |= running
@@ -133,6 +158,9 @@ def search_layer(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
             r_order = stable_argsort(rd)[:, :ef]
             res_d = rd.gather(1, r_order)
             res_i = ri.gather(1, r_order)
+    sp.set(steps=steps)
+    if sp.profiled:
+        sp.set(rows_visited=count_flags(visited, N))
     if filtered:
         return res_i, res_d
     return ids, dists
@@ -143,10 +171,14 @@ def _descend(params: HNSWParams, index: HNSWIndex, Q: torch.Tensor,
     """Greedy descent from the top layer to (but not including)
     ``down_to_layer[B]``; returns the entry points ``[B]``."""
     B = Q.shape[0]
-    ep = index.entry.long().clamp_min(0).expand(B).clone()
-    for layer in range(params.num_layers - 1, 0, -1):
-        active = (layer <= index.max_layer) & (layer > down_to_layer)
-        ep = greedy_layer(params, index, Q, ep, layer, active=active)
+    with spans.span("search.descend") as sp:
+        ep = index.entry.long().clamp_min(0).expand(B).clone()
+        steps = 0
+        for layer in range(params.num_layers - 1, 0, -1):
+            active = (layer <= index.max_layer) & (layer > down_to_layer)
+            ep, n = _greedy_steps(params, index, Q, ep, layer, active)
+            steps += n
+        sp.set(steps=steps)
     return ep
 
 

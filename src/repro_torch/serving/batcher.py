@@ -24,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.backup import batch_dual_search
 from ..core.index import HNSWParams
 from ..core.metrics import get_metric, normalize_rows
@@ -118,6 +119,7 @@ class MicroBatcher:
         self.planner = planner if planner is not None else DEFAULT_PLANNER
         self._stats_cache: tuple[int, object] | None = None  # (epoch, stats)
         self._search_fn = search_fn or self._default_search
+        self._last_tier = self.mode      # the tier of the latest dispatch
         self._pending: list[QueryTicket] = []
         self._next_qid = 0
 
@@ -154,7 +156,7 @@ class MicroBatcher:
         return choose_tier(self._stats_cache[1], self.planner).tier
 
     def _default_search(self, snapshot: EpochSnapshot, Q: torch.Tensor):
-        tier = self._plan_tier(snapshot)
+        tier = self._last_tier = self._plan_tier(snapshot)
         self.metrics.counter(f"tier_{tier}_batches").inc()
         if tier == "exact":
             labels, _, dists = exact_scan(self.params, snapshot.index, Q,
@@ -173,7 +175,13 @@ class MicroBatcher:
 
         A backlog larger than ``max_batch`` dispatches multiple full batches
         back to back — every ticket in the flush still sees the same epoch.
+        The flush is the span ``batcher.flush``; each batch ``batcher.batch``
+        (``rows``, ``bucket``, ``tier``).
         """
+        with spans.span("batcher.flush"):
+            return self._flush(snapshot)
+
+    def _flush(self, snapshot: EpochSnapshot) -> list[QueryTicket]:
         completed: list[QueryTicket] = []
         while self._pending:
             take = min(len(self._pending), self.max_batch)
@@ -187,10 +195,12 @@ class MicroBatcher:
             Q[take:] = batch[0].vector          # pad rows: discarded below
 
             t0 = time.perf_counter()
-            labels, dists = self._search_fn(
-                snapshot, torch.from_numpy(Q).to(snapshot.index.device))
-            labels = labels.cpu().numpy()       # waits for the device
-            dists = dists.cpu().numpy()
+            with spans.span("batcher.batch", rows=take, bucket=b) as sp:
+                labels, dists = self._search_fn(
+                    snapshot, torch.from_numpy(Q).to(snapshot.index.device))
+                labels = labels.cpu().numpy()   # waits for the device
+                dists = dists.cpu().numpy()
+                sp.set(tier=self._last_tier)
             dt = time.perf_counter() - t0
 
             for i, t in enumerate(batch):

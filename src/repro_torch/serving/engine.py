@@ -43,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+from ..core import spans
 from ..core.distributed import (ShardedIndex, shard_index,
                                 sharded_batch_knn, sharded_update)
 from ..core.index import HNSWIndex, HNSWParams, empty_index
@@ -193,7 +194,13 @@ class ServingEngine:
 
     # -- the event loop -----------------------------------------------------
     def pump(self, max_updates: int | None = None) -> PumpStats:
-        """One deterministic serve/maintain/publish step."""
+        """One deterministic serve/maintain/publish step (the span
+        ``engine.pump``, with ``batcher.flush``, ``scheduler.drain``,
+        ``engine.maintain`` and ``engine.publish`` inside it)."""
+        with spans.use(self.metrics), self.metrics.span("engine.pump"):
+            return self._pump(max_updates)
+
+    def _pump(self, max_updates: int | None) -> PumpStats:
         t0 = time.perf_counter()
         snap = self.store.current()
 
@@ -214,9 +221,11 @@ class ServingEngine:
         if applied:                    # main-index writes age the health
             self._dirty_since_consult = True
             self._last_health = None
-        maintained = self._maybe_maintain()
+        with spans.span("engine.maintain"):
+            maintained = self._maybe_maintain()
 
-        out = self.store.publish()
+        with spans.span("engine.publish"):
+            out = self.store.publish()
 
         self.metrics.counter("pumps").inc()
         self.metrics.set_gauge("epoch", out.epoch)

@@ -31,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.backup import rebuild_backup
 from ..core.batch_update import apply_plan, compile_tape
 from ..core.index import HNSWIndex, HNSWParams
@@ -181,7 +182,9 @@ class UpdateScheduler:
                 (now - op.enqueued_t) * 1e3)
 
         t0 = time.perf_counter()
-        index = self._apply_fn(index, ops, labels, X)
+        with spans.span("scheduler.drain", ops=take) as sp:
+            index = self._apply_fn(index, ops, labels, X)
+            sp.set(waves=self.last_drain_waves)
         self.metrics.histogram("drain_latency_ms").observe(
             (time.perf_counter() - t0) * 1e3)
         self._ru_ops += sum(1 for op in batch if op.kind != "delete")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.count_flags import count_flags
 from repro_torch.kernels.embed_bag import (EmbedBagFunction, embed_bag,
                                            embed_bag_backward_ref,
                                            embed_bag_ref)
@@ -562,3 +563,39 @@ def test_real_wide_deep_step_counts_what_its_trace_counts(cuda):
         real["cost"]["flops_by_family"]
     assert real["cost"]["flops_by_family"]["embed_bag"] == \
         256 * cfg.bag_len * cfg.embed_dim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width,cols,offset", [
+    (1, 1, 1, 0), (1, 5, 0, 0), (3, 17, 16, 0), (5, 33, 20, 3),
+    (1000, 1025, 1024, 0), (4096, 4097, 4096, 7), (257, 64, 61, 9)])
+def test_count_flags_matches_a_plain_count(cuda, rows, width, cols, offset):
+    """Any shape, any excluded columns, and flags that start off a 16-byte
+    boundary (``offset``), against the plain version; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(rows * width + offset)
+    flat = torch.rand(rows * width + offset, device=cuda, generator=g) < 0.3
+    flags = flat[offset:].view(rows, width)
+    before = count_flags.launches
+    got = count_flags(flags, cols)
+    assert count_flags.launches == before + 1
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == int(flags[:, :cols].sum())
+
+
+@pytest.mark.gpu
+def test_count_flags_at_the_search_cells_shape(cuda):
+    """The lockstep search's visited flags in the search cells: 32,768
+    lanes x 262,145 (8.6 GB, column 262,144 the uncounted sink, set in
+    every third lane), against a plain count taken 1,024 lanes at a time."""
+    B, N = 32_768, 262_144
+    g = torch.Generator(device=cuda).manual_seed(5)
+    v = torch.empty((B, N + 1), dtype=torch.bool, device=cuda)
+    for i in range(0, B, 1024):
+        v[i:i + 1024] = torch.rand((1024, N + 1), device=cuda,
+                                   generator=g) < 0.01
+    v[::3, N] = True
+    want = sum(int(v[i:i + 1024, :N].sum()) for i in range(0, B, 1024))
+    got = int(count_flags(v, N))
+    del v
+    torch.cuda.empty_cache()
+    assert got == want
