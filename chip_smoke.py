@@ -6,7 +6,7 @@
 Phases, each of which exits nonzero on failure:
 
   1. the card's name and power limit, the torch version, and the build of
-     the four CUDA kernels from ``src/repro_torch/kernels`` (one ``nvcc``
+     the five CUDA kernels from ``src/repro_torch/kernels`` (one ``nvcc``
      each, all at once), with each kernel's ``ptxas`` registers;
   2. each kernel against its plain PyTorch version on the card, with times,
      the bound and a library yardstick: ``topk_dist`` (l2 and ip, the
@@ -23,9 +23,13 @@ Phases, each of which exits nonzero on failure:
      mean, plus the test shapes, and phase 8's 262,144 bags of 32, whose
      times the kernel report gives, with the lane-group layout it took);
      each wrapper is first driven through its public entry point at those
-     shapes, and its launches counted; and ``count_flags`` at the search
+     shapes, and its launches counted; ``count_flags`` at the search
      cells' visited flags, 32,768 x 262,145 (8.6 GB), exact against a
-     plain count taken 1,024 lanes at a time, with its time;
+     plain count taken 1,024 lanes at a time, with its time; and
+     ``beam_expand``, one step of the lockstep search at the search cells'
+     shape (d 128 l2, d 100 ip, ~24% of the slots fresh), exact ids and
+     flags against its plain version, with its time, the plain version's
+     and its byte bound;
   3. the main path at the paper's SIFT1M shape: wave build, 5 rounds of 1%
      MN-RU-gamma churn, queries (graph and exact tier) with recall against
      the kernel's exact ground truth, unreachable counts, then a backup
@@ -592,6 +596,78 @@ def count_flags_phase(B=32_768, N=262_144, share=0.01, seed=0):
     return {"shape": [B, N + 1], "count": int(got), "plain": want,
             "ms": ms, "bound_ms": bound_ms,
             "launches": count_flags.launches}
+
+
+def beam_expand_phase(B=32_768, N=262_144, M0=32, fresh_share=0.24,
+                      reps=5, seed=0):
+    """``beam_expand`` at the search cells' shape: one expansion step of
+    32,768 lanes over 262,144 rows (M0 32, the visited flags 8.6 GB), sift's
+    d 128 l2 and glove's d 100 ip in f32, with ~``fresh_share`` of the slots
+    fresh (the share ``search_fresh_pct.search`` reads in those cells);
+    ids and flags exact against ``ref.py``, distances within 1e-5, one
+    launch, and its device time beside ``ref.py``'s and its bound: the
+    bytes it must move at HBM rate (the fresh rows, the neighbour rows, a
+    32-byte sector per flag read and per flag set, the queries, ``cur``,
+    ``running`` and the outputs). Each timed call expands other rows
+    (``cur`` drawn anew), so its slots stay ~``fresh_share`` fresh: a call
+    sets at most M0 of a lane's 262,144 flags."""
+    import torch
+    from repro_torch.core.metrics import get_metric
+    from repro_torch.kernels.beam_expand import beam_expand, beam_expand_ref
+    dev = "cuda"
+    out = {}
+    for space, d in (("l2", 128), ("ip", 100)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        X = torch.randn(N, d, device=dev, generator=g)
+        Q = torch.randn(B, d, device=dev, generator=g)
+        nbrs = torch.randint(0, N, (N, M0), device=dev, generator=g,
+                             dtype=torch.int32)
+        curs = [torch.randint(0, N, (B,), device=dev, generator=g)
+                for _ in range(2 * reps + 2)]
+        running = torch.ones(B, dtype=torch.bool, device=dev)
+        v = torch.empty((B, N + 1), dtype=torch.bool, device=dev)
+        for i in range(0, B, 1024):
+            v[i:i + 1024] = torch.rand((min(1024, B - i), N + 1),
+                                       device=dev, generator=g) \
+                >= fresh_share
+        metric = get_metric(space)
+        v_ref = v.clone()
+        nd_r, ni_r = beam_expand_ref(metric.point_fn, Q, X, nbrs, curs[0],
+                                     running, v_ref)
+        beam_expand.launches = 0
+        nd, ni = beam_expand(metric, Q, X, nbrs, curs[0], running, v)
+        check(beam_expand.launches == 1,
+              f"beam_expand launched {beam_expand.launches} times, not once")
+        fresh = ni_r >= 0
+        check(torch.equal(ni, ni_r) and torch.equal(v[:, :N], v_ref[:, :N]),
+              f"beam_expand {space}: ids or flags differ from ref.py")
+        err = float(((nd[fresh] - nd_r[fresh]).abs()
+                     / nd_r[fresh].abs().clamp_min(1.0)).max())
+        check(bool(torch.isinf(nd[~fresh]).all()) and err <= 1e-5,
+              f"beam_expand {space}: distances off by {err:.3g}")
+        n_fresh = int(fresh.sum())
+        calls = {"kernel": iter(curs[1:]), "plain": iter(curs[1:])}
+        ms = cuda_ms(lambda: beam_expand(metric, Q, X, nbrs,
+                                         next(calls["kernel"]), running, v),
+                     reps)
+        plain_ms = cuda_ms(lambda: beam_expand_ref(
+            metric.point_fn, Q, X, nbrs, next(calls["plain"]), running,
+            v_ref), reps)
+        bytes_ = (n_fresh * (d * 4 + 32) + B * M0 * (4 + 32 + 12)
+                  + B * (d * 4 + 9))
+        bound_ms = bytes_ / PEAK_BYTES * 1e3
+        log(f"beam_expand {space} {B} lanes x {N} rows x d {d}, M0 {M0}: "
+            f"{n_fresh} fresh slots ({100 * n_fresh / (B * M0):.1f}%), "
+            f"exact ids and flags, max rel err {err:.3g}; kernel {ms:.4f} ms, "
+            f"ref.py {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bytes_ / 1e6:.1f} MB; {100 * bound_ms / ms:.0f}%)")
+        out[space] = {"d": d, "fresh": n_fresh, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bytes": bytes_, "max_rel_err": err,
+                      "launches": beam_expand.launches}
+        del X, Q, nbrs, curs, v, v_ref, nd, ni, nd_r, ni_r
+        torch.cuda.empty_cache()
+    return out
 
 
 def op_overhead(reps=300):
@@ -2994,6 +3070,7 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.beam_expand.beam_expand import LIBRARY as BE_LIB
     from repro_torch.kernels.count_flags.count_flags import LIBRARY as CF_LIB
     from repro_torch.kernels.embed_bag.embed_bag import LIBRARY as EB_LIB
     from repro_torch.kernels.l2dist.l2dist import LIBRARY as L2_LIB
@@ -3001,9 +3078,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.topk_dist.topk_dist import LIBRARY as TK_LIB
     phase_s = {}
     t = time.perf_counter()
-    build_all([TK_LIB, L2_LIB, EB_LIB, CF_LIB])
+    build_all([TK_LIB, L2_LIB, EB_LIB, CF_LIB, BE_LIB])
     phase_s["1_build"] = time.perf_counter() - t
-    for lib in (TK_LIB, L2_LIB, EB_LIB, CF_LIB):
+    for lib in (TK_LIB, L2_LIB, EB_LIB, CF_LIB, BE_LIB):
         log(f"{lib.name} kernel built in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
@@ -3025,6 +3102,7 @@ def main(argv=None) -> int:
     l2_report, results["l2dist"] = timed("2_l2dist", l2dist_phase, args.n)
     eb_report, results["embed_bag"] = timed("2_embed_bag", embed_bag_phase)
     results["count_flags"] = timed("2_count_flags", count_flags_phase)
+    results["beam_expand"] = timed("2_beam_expand", beam_expand_phase)
     results["op_overhead_us"] = timed("2_op_overhead", op_overhead)
 
     topk_dist.launches = Live.truth_launches = 0

@@ -16,6 +16,11 @@ Filtered search: an optional slot-level ``allow`` mask threads a second
 fixed-size beam through the traversal — the walk still expands through
 disallowed points, but only allowed points enter the result beam.
 
+Each step's expansion (the expanded row's neighbours: which are fresh,
+their visited flags, their distances) is one ``kernels.beam_expand`` call:
+one hand-written kernel launch on CUDA, which loads and scores only the
+fresh rows of the running lanes.
+
 Spans (``core.spans``): ``search.descend`` (``steps``: greedy steps summed
 over its layers) and one ``search.layer`` per :func:`search_layer` call
 (``layer``, ``lanes``, ``ef``, ``steps``: the loop's count; while a
@@ -30,7 +35,8 @@ import torch
 from . import spans
 from .common import INF, INVALID, stable_argsort
 from .index import HNSWIndex, HNSWParams
-from .metrics import dist_point
+from .metrics import dist_point, get_metric
+from ..kernels.beam_expand import beam_expand
 from ..kernels.count_flags import count_flags
 
 #: lockstep loops test "all lanes done" on the host once per this many steps
@@ -104,6 +110,8 @@ def _search_layer(params, index, Q, ep, layer, ef, max_steps, allow, sp):
     dev = Q.device
     M0 = params.M0
     steps_cap = max_steps if max_steps is not None else params.steps_for(ef)
+    metric = get_metric(params.space)
+    Q = Q.contiguous()                    # the kernel takes contiguous rows
     nbrs_l = index.neighbors[layer]
     filtered = allow is not None
     rows = torch.arange(B, device=dev)
@@ -136,25 +144,19 @@ def _search_layer(params, index, Q, ep, layer, ef, max_steps, allow, sp):
         cur = ids[rows, i].clamp_min(0)
         expanded[rows, i] |= running
 
-        nb = nbrs_l[cur].long()                               # [B, M0]
-        valid = (nb >= 0) & running[:, None]
-        nc = nb.clamp_min(0)
-        fresh = valid & ~visited.gather(1, nc)
-        visited.scatter_(1, torch.where(valid, nc, N), True)
-
-        nd = torch.where(fresh, dist_point(params.space, Q,
-                                           index.vectors[nc]), INF)
+        nd, ni = beam_expand(metric, Q, index.vectors, nbrs_l, cur, running,
+                             visited)                     # [B, M0] each
         all_d = torch.cat([dists, nd], dim=1)
-        all_i = torch.cat([ids, torch.where(fresh, nc, INVALID)], dim=1)
+        all_i = torch.cat([ids, ni], dim=1)
         all_e = torch.cat([expanded, no_exp], dim=1)
         order = stable_argsort(all_d)[:, :ef]
         dists = all_d.gather(1, order)
         ids = all_i.gather(1, order)
         expanded = all_e.gather(1, order)
         if filtered:
-            a_ok = fresh & allow[nc]
+            a_ok = (ni >= 0) & allow[ni.clamp_min(0)]
             rd = torch.cat([res_d, torch.where(a_ok, nd, INF)], dim=1)
-            ri = torch.cat([res_i, torch.where(a_ok, nc, INVALID)], dim=1)
+            ri = torch.cat([res_i, torch.where(a_ok, ni, INVALID)], dim=1)
             r_order = stable_argsort(rd)[:, :ef]
             res_d = rd.gather(1, r_order)
             res_i = ri.gather(1, r_order)

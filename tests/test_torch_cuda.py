@@ -599,3 +599,184 @@ def test_count_flags_at_the_search_cells_shape(cuda):
     del v
     torch.cuda.empty_cache()
     assert got == want
+
+
+def _expand_inputs(B, N, M0, d, xdt, qdt, dev, seed=0, share=0.3,
+                   offset=0):
+    """One random expansion step: rows (``offset`` elements past an
+    aligned start), queries, neighbour rows with ~10% padding and a
+    repeated id in every row, the lanes' expanded rows, ~90% of the lanes
+    running, and flags ``share`` set (made 1,024 lanes at a time)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn(N * d + offset, device=dev, generator=g).to(xdt)
+    vectors = flat[offset:].view(N, d)
+    Q = torch.randn(B, d, device=dev, generator=g).to(qdt)
+    nbrs = torch.randint(0, N, (N, M0), device=dev, generator=g,
+                         dtype=torch.int32)
+    nbrs[torch.rand(N, M0, device=dev, generator=g) < 0.1] = -1
+    if M0 > 3:
+        nbrs[:, 3] = nbrs[:, 2]
+    cur = torch.randint(0, N, (B,), device=dev, generator=g)
+    running = torch.rand(B, device=dev, generator=g) < 0.9
+    visited = torch.empty((B, N + 1), dtype=torch.bool, device=dev)
+    for i in range(0, B, 1024):
+        visited[i:i + 1024] = torch.rand((min(1024, B - i), N + 1),
+                                         device=dev, generator=g) < share
+    return Q, vectors, nbrs, cur, running, visited
+
+
+def _expand_against_plain(space, inputs, N):
+    """The kernel against ``ref.py`` on the same inputs: ids and flags
+    exact, distances within 1e-5 of the size of their terms (the sum runs
+    in another order): relative for l2, whose terms are all positive, and
+    relative to the sum of ``|x q|`` for ip, whose ``1 - x.q`` cancels."""
+    from repro_torch.core.metrics import get_metric
+    from repro_torch.kernels.beam_expand import beam_expand, beam_expand_ref
+    Q, vectors, nbrs, cur, running, visited = inputs
+    metric = get_metric(space)
+    v_ref = visited.clone()
+    nd_r, ni_r = beam_expand_ref(metric.point_fn, Q, vectors, nbrs, cur,
+                                 running, v_ref)
+    before = beam_expand.launches
+    nd, ni = beam_expand(metric, Q, vectors, nbrs, cur, running, visited)
+    assert beam_expand.launches == before + 1
+    assert torch.equal(ni, ni_r)
+    assert torch.equal(visited[:, :N], v_ref[:, :N])
+    fresh = ni_r >= 0
+    assert bool(torch.isinf(nd[~fresh]).all())
+    rows = vectors[ni_r.clamp_min(0)].float()
+    size = (nd_r if space == "l2" else
+            1 + (rows * Q.float()[:, None]).abs().sum(-1))
+    gap = (nd - nd_r).abs()
+    assert bool((gap[fresh] <= 1e-5 * size[fresh]).all()), \
+        float((gap[fresh] / size[fresh]).max())
+    return int(fresh.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("space,xdt,qdt", [
+    ("l2", torch.float32, torch.float32), ("ip", torch.float32, torch.float32),
+    ("l2", torch.bfloat16, torch.bfloat16),
+    ("l2", torch.bfloat16, torch.float32),
+    ("ip", torch.bfloat16, torch.bfloat16),
+    ("l2", torch.float16, torch.float16), ("ip", torch.float16, torch.float16),
+    ("l2", torch.float16, torch.bfloat16)],
+    ids=["l2-f32", "ip-f32", "l2-bf16", "l2-bf16-rows-f32-queries",
+         "ip-bf16", "l2-f16", "ip-f16", "l2-f16-rows-bf16-queries"])
+@pytest.mark.parametrize("d,M0,offset", [
+    (3, 8, 0), (7, 32, 1), (100, 32, 0), (128, 32, 0), (128, 32, 2),
+    (960, 16, 0), (64, 128, 0), (8, 33, 0), (2048, 32, 1)])
+def test_beam_expand_kernel_matches_plain(cuda, space, xdt, qdt, d, M0,
+                                          offset):
+    """Every load width (16, 8, 4 and 2 bytes: ``offset`` moves the rows off
+    a 16-byte start), groups of 1 to 32 threads, rows longer than a warp's
+    loads, up to 128 slots, lanes not running, repeated and padded slots."""
+    N, B = 3000, 70
+    inputs = _expand_inputs(B, N, M0, d, xdt, qdt, cuda, seed=d + M0,
+                            offset=offset)
+    assert _expand_against_plain(space, inputs, N) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("space,d,dt", [("l2", 128, torch.float32),
+                                        ("ip", 100, torch.float32),
+                                        ("l2", 128, torch.bfloat16)])
+def test_beam_expand_at_the_search_cells_shape(cuda, space, d, dt):
+    """32,768 lanes x 262,145 flags (8.6 GB), M0 32: sift's d 128 l2 and
+    glove's d 100 ip in f32, and d 128 l2 in bf16."""
+    B, N = 32_768, 262_144
+    inputs = _expand_inputs(B, N, 32, d, dt, dt, cuda, share=0.01)
+    try:
+        assert _expand_against_plain(space, inputs, N) > B
+    finally:
+        del inputs
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_beam_expand_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.core.metrics import get_metric
+    from repro_torch.kernels.beam_expand import beam_expand
+    Q, vectors, nbrs, cur, running, visited = _expand_inputs(
+        4, 100, 8, 16, torch.float32, torch.float32, cuda)
+    l2 = get_metric("l2")
+    with pytest.raises(ValueError, match="contiguous"):
+        beam_expand(l2, Q.t().contiguous().t(), vectors, nbrs, cur, running,
+                    visited)
+    with pytest.raises(ValueError, match="contiguous"):
+        beam_expand(l2, Q, vectors, nbrs, cur, running,
+                    visited.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        beam_expand(l2, Q.double(), vectors.double(), nbrs, cur, running,
+                    visited)
+    with pytest.raises(ValueError, match="several devices"):
+        beam_expand(l2, Q.cpu(), vectors, nbrs, cur, running, visited)
+
+
+@pytest.fixture(scope="module")
+def graph_16k():
+    """A 2^14-row l2 graph built on the card (M0 32, as the cells)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.core.batch_update import build_batch
+    from repro_torch.core.index import HNSWParams
+    params = HNSWParams(M=16, M0=32, num_layers=4, ef_construction=64,
+                        ef_search=64, space="l2")
+    rng = np.random.default_rng(3)
+    centres = rng.normal(size=(32, 128))
+    X = (centres[rng.integers(0, 32, 1 << 14)]
+         + 0.3 * rng.normal(size=(1 << 14, 128))).astype(np.float32)
+    index = build_batch(params, X, device="cuda")
+    Q = (centres[rng.integers(0, 32, 2048)]
+         + 0.3 * rng.normal(size=(2048, 128))).astype(np.float32)
+    return params, index, torch.from_numpy(Q).cuda()
+
+
+@pytest.mark.gpu
+def test_beam_expand_launches_once_a_search_step(cuda, graph_16k):
+    """Every step of a ``search_layer`` call on CUDA is one launch: the
+    launches equal the steps its span counts, in ``batch_knn`` too."""
+    from repro_torch.core import search, spans
+    from repro_torch.kernels.beam_expand import beam_expand
+    from repro_torch.serving.metrics import MetricsRegistry
+    params, index, Q = graph_16k
+    reg = MetricsRegistry()
+    with spans.use(reg):
+        before = beam_expand.launches
+        ep = index.entry.long().expand(Q.shape[0]).clone()
+        search.search_layer(params, index, Q, ep, 0, 64)
+        steps = reg.spans("search.layer")[-1].attrs["steps"]
+        assert steps > 0 and beam_expand.launches == before + steps
+        before = beam_expand.launches
+        search.batch_knn(params, index, Q, 10)
+    steps = sum(s.attrs["steps"] for s in reg.spans("search.layer")[1:])
+    assert beam_expand.launches == before + steps
+
+
+@pytest.mark.gpu
+def test_batch_knn_through_the_kernel_gives_the_plain_labels(
+        cuda, graph_16k, monkeypatch):
+    """``batch_knn`` through the kernel against the same search with the
+    expansion in plain PyTorch (the l2 space registered without a kernel
+    form): the same top-10 labels wherever the 10th and 11th distances
+    differ by more than 1e-6 relative."""
+    import dataclasses
+
+    from repro_torch.core import metrics, search
+    from repro_torch.kernels.beam_expand import beam_expand
+    params, index, Q = graph_16k
+    monkeypatch.setitem(metrics._METRICS, "l2-plain", dataclasses.replace(
+        metrics.get_metric("l2"), name="l2-plain", kernel_form=None))
+    plain_params = dataclasses.replace(params, space="l2-plain")
+    before = beam_expand.launches
+    lp, _, dp = search.batch_knn(plain_params, index, Q, 11)
+    assert beam_expand.launches == before
+    lk, _, dk = search.batch_knn(params, index, Q, 11)
+    assert beam_expand.launches > before
+    apart = (dp[:, 10] - dp[:, 9]) > 1e-6 * dp[:, 9].abs()
+    assert int(apart.sum()) > 0.9 * Q.shape[0]
+    torch.testing.assert_close(dk[apart, :10], dp[apart, :10], rtol=1e-5,
+                               atol=1e-5)
+    a = lk[apart, :10].sort(dim=1).values
+    b = lp[apart, :10].sort(dim=1).values
+    assert torch.equal(a, b)
