@@ -5,11 +5,23 @@ points and a small dedicated HNSW ("backup index") is rebuilt over them.
 Queries then run against BOTH indexes and merge by distance — unreachable
 points stay servable without a full main-index rebuild. Reachability is the
 BFS closure (``reach.bfs_unreachable``), a superset of search reachability.
+
+The merge serves a backup hit only while its label is live in the main
+index it is merged with: between two rebuilds the main index deletes and
+replaces points the backup still holds. The reference merges every backup
+hit; the two agree wherever no backup label has died since the rebuild.
+
+Spans (``core.spans``): ``backup.sweep`` (the reachability sweep of a
+rebuild) and ``search.dual`` (``rows``; ``backup_hits``, the served entries
+that came from the backup, and ``dead_dropped``, the backup hits dropped as
+no longer live, counted over the batch's first ``rows`` rows, and added
+to the counters ``backup_hits_served`` and ``backup_dead_dropped``).
 """
 from __future__ import annotations
 
 import torch
 
+from . import spans
 from .common import INF, stable_argsort
 from .hnsw import WAVE_BUILD_MIN_N, insert
 from .index import HNSWIndex, HNSWParams, empty_index, seed_key
@@ -33,12 +45,14 @@ def rebuild_backup(params: HNSWParams, index: HNSWIndex, capacity: int,
     Past that size the backup is therefore a wave build, where the
     reference's is always sequential. Levels come from ``generator``
     (default: a CPU generator seeded with ``seed``), or from ``levels``
-    (sequential route) or ``build_batch``'s ``draws`` (wave route).
+    (sequential route) or ``build_batch``'s ``draws`` (wave route). The
+    backup's ``source`` holds the main slot of each backup slot.
     """
     if execution not in ("auto", "wave", "sequential"):
         raise ValueError(f"unknown backup execution {execution!r}; expected "
                          f"'auto', 'wave', or 'sequential'")
-    mask = bfs_unreachable(index)
+    with spans.span("backup.sweep"):
+        mask = bfs_unreachable(index)
     N = index.capacity
     ar = torch.arange(N, device=index.device)
     slots = stable_argsort(torch.where(mask, ar, N))[:capacity]
@@ -63,31 +77,80 @@ def rebuild_backup(params: HNSWParams, index: HNSWIndex, capacity: int,
                    None if levels is None else int(levels[i]), generator)
     # the reference's key PRNGKey(0) + seed, carried as opaque state
     backup.rng = (seed_key(0).long() + int(seed)).to(torch.uint32)
+    backup.source = torch.full((capacity,), -1, dtype=torch.int32,
+                               device=index.device)
+    backup.source[:n_valid] = slots.to(torch.int32)
     return backup
+
+
+def empty_backup(params: HNSWParams, capacity: int, dim: int,
+                 dtype=torch.float32, device="cuda") -> HNSWIndex:
+    """A backup index that holds no point yet (``source`` all -1)."""
+    backup = empty_index(params, capacity, dim, 1, dtype=dtype, device=device)
+    backup.source = torch.full((capacity,), -1, dtype=torch.int32,
+                               device=backup.device)
+    return backup
+
+
+def _live_hits(main: HNSWIndex, backup: HNSWIndex, labels: torch.Tensor,
+               ids: torch.Tensor) -> torch.Tensor:
+    """bool: whether each backup hit (``labels``, backup slots ``ids``) is
+    still live in ``main``, by label: the main slot it was copied from
+    (``backup.source``) still holds that label, allocated and not deleted
+    (``replaced_update`` reuses a freed slot under a new label)."""
+    src = backup.source[ids.clamp_min(0).long()]
+    s = src.clamp_min(0).long()
+    return ((labels >= 0) & (src >= 0) & (main.labels[s] == labels)
+            & (main.levels[s] >= 0) & ~main.deleted[s])
 
 
 def batch_dual_search(params_main: HNSWParams, main: HNSWIndex,
                       params_backup: HNSWParams, backup: HNSWIndex,
-                      Q: torch.Tensor, k: int, ef: int | None = None):
-    """Algorithm 1 (dualSearch) for a batch: query both indexes, merge by
-    distance, drop a label found in both. Returns ``(labels[b, k] i32,
-    dists[b, k])``. The two metric spaces must match."""
+                      Q: torch.Tensor, k: int, ef: int | None = None, *,
+                      rows: int | None = None):
+    """Algorithm 1 (dualSearch) for a batch: query both indexes, drop every
+    backup hit whose label is no longer live in ``main``, drop a label
+    found in both (main's copy stays), and take the ``k`` nearest by a
+    stable sort (main's hits first). Returns ``(labels[b, k] i32,
+    dists[b, k])``, padded with -1 / inf only where fewer than ``k``
+    eligible hits remain. The two metric spaces must match, and ``backup``
+    is one made by ``rebuild_backup`` or ``empty_backup`` (its ``source``).
+
+    ``rows`` is the number of real queries leading ``Q`` (the rest pad).
+    Where a registry records, the span's counts over those rows also go to
+    its counters ``backup_hits_served`` and ``backup_dead_dropped``."""
     if params_main.space != params_backup.space:
         raise ValueError(
             f"dualSearch cannot merge across metric spaces: main is "
             f"{params_main.space!r}, backup is {params_backup.space!r}")
-    lm, _, dm = batch_knn(params_main, main, Q, k, ef)
-    lb, _, db = batch_knn(params_backup, backup, Q, k, ef)
-    labels = torch.cat([lm, lb], dim=1).long()
-    dists = torch.cat([dm, db], dim=1)
-    order = stable_argsort(labels)
-    sl = labels.gather(1, order)
-    dup_s = torch.zeros_like(sl, dtype=torch.bool)
-    dup_s[:, 1:] = (sl[:, 1:] == sl[:, :-1]) & (sl[:, 1:] >= 0)
-    dup = torch.zeros_like(dup_s).scatter_(1, order, dup_s)
-    dists = torch.where(dup | (labels < 0), INF, dists)
-    o = stable_argsort(dists)[:, :k]
-    return labels.gather(1, o).int(), dists.gather(1, o)
+    if backup.source is None:
+        raise ValueError("dualSearch needs a backup made by rebuild_backup "
+                         "or empty_backup: it has no source slots")
+    rows = Q.shape[0] if rows is None else rows
+    with spans.span("search.dual", rows=rows) as sp:
+        lm, _, dm = batch_knn(params_main, main, Q, k, ef)
+        lb, ib, db = batch_knn(params_backup, backup, Q, k, ef)
+        live = _live_hits(main, backup, lb, ib)
+        dead = (lb >= 0) & ~live
+        labels = torch.cat([lm, torch.where(live, lb, -1)], dim=1).long()
+        dists = torch.cat([dm, db], dim=1)
+        order = stable_argsort(labels)
+        sl = labels.gather(1, order)
+        dup_s = torch.zeros_like(sl, dtype=torch.bool)
+        dup_s[:, 1:] = (sl[:, 1:] == sl[:, :-1]) & (sl[:, 1:] >= 0)
+        dup = torch.zeros_like(dup_s).scatter_(1, order, dup_s)
+        drop = dup | (labels < 0)
+        dists = torch.where(drop, INF, dists)
+        o = stable_argsort(dists)[:, :k]
+        served = ~drop.gather(1, o)
+        out = torch.where(served, labels.gather(1, o), -1).int()
+        if sp is not spans.NO_SPAN:
+            hits = (served & (o >= lm.shape[1]))[:rows].sum()
+            hits, dropped = torch.stack([hits, dead[:rows].sum()]).tolist()
+            sp.set(backup_hits=hits, dead_dropped=dropped)
+            spans.count("backup_hits_served", hits)
+            spans.count("backup_dead_dropped", dropped)
+        return out, dists.gather(1, o)
 
 
 def dual_search(params_main: HNSWParams, main: HNSWIndex,
@@ -112,9 +175,9 @@ class DualIndexManager:
         self.tau = tau
         self.backup_params = backup_params or params
         self.backup_capacity = backup_capacity
-        self.backup = empty_index(self.backup_params, backup_capacity,
-                                  index.dim, 1, dtype=index.vectors.dtype,
-                                  device=index.device)
+        self.backup = empty_backup(self.backup_params, backup_capacity,
+                                   index.dim, dtype=index.vectors.dtype,
+                                   device=index.device)
         self.generator = generator
         self._ru_ops = 0
         self._rebuilds = 0

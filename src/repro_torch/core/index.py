@@ -12,6 +12,10 @@ Layout (identical to the reference's npz layout, field for field):
   count     i32[]          number of live (non-free) slots
   rng       u32[2]         the reference's PRNG key, carried as opaque state
 
+A backup index (``core.backup``) also carries ``source``: i32[N], the main
+index's slot each backup slot was copied from (-1 = none), which dualSearch
+requires; other indexes leave it None. It is not part of the npz layout.
+
 Randomness never comes from ``rng``: every draw takes an explicit
 ``torch.Generator`` (levels, reuse cursors), or an override so that tests
 can feed in the reference's draws.
@@ -60,6 +64,7 @@ class HNSWIndex:
     max_layer: torch.Tensor
     count: torch.Tensor
     rng: torch.Tensor
+    source: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:
@@ -75,7 +80,9 @@ class HNSWIndex:
 
     def clone(self) -> "HNSWIndex":
         """A deep copy (updates work in place; clone to keep a state)."""
-        return HNSWIndex(**{f: getattr(self, f).clone() for f in FIELDS})
+        return HNSWIndex(
+            **{f: getattr(self, f).clone() for f in FIELDS},
+            source=None if self.source is None else self.source.clone())
 
 
 def _scalar(v: int, device) -> torch.Tensor:

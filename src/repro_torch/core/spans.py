@@ -3,8 +3,9 @@
 The recorder is the serving layer's ``MetricsRegistry``; ``core/`` does not
 import ``serving/``, so the facade and the engine make their registry
 current around each of their calls (:func:`use`) and the core's layers open
-spans through :func:`span`. With no current registry (a direct call into the
-core), a span is a no-op that costs one context-variable read.
+spans through :func:`span` and add to its counters through :func:`count`.
+With no current registry (a direct call into the core), a span is a no-op
+that costs one context-variable read.
 
 The registry's ``span(name, **attrs)`` yields a span with ``set(**attrs)``
 (attributes known only at its end) and ``profiled`` (True while a
@@ -40,6 +41,14 @@ def span(name: str, **attrs):
     if reg is None:
         return _OFF
     return reg.span(name, **attrs)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of the current registry (nothing
+    without one). A counter is made at its first count above 0."""
+    reg = _CURRENT.get()
+    if reg is not None and n:
+        reg.counter(name).inc(n)
 
 
 @contextlib.contextmanager

@@ -87,8 +87,9 @@ class QueryTicket:
 class MicroBatcher:
     """Coalesces pending queries and serves them against one snapshot.
 
-    ``search_fn(snapshot, Q) -> (labels[b, k], dists[b, k])`` can be
-    injected to reroute dispatch. The default dispatch consults the query
+    ``search_fn(snapshot, Q, rows) -> (labels[b, k], dists[b, k])`` can be
+    injected to reroute dispatch (``rows``: the real queries leading ``Q``,
+    the rest pad). The default dispatch consults the query
     planner PER BUCKET: ``mode="auto"`` routes each batch to the exact tier
     when the snapshot is small / churn-heavy and to the graph tier
     otherwise — ``batch_dual_search`` when the snapshot carries a backup
@@ -155,7 +156,8 @@ class MicroBatcher:
             self._stats_cache = (snapshot.epoch, index_stats(snapshot.index))
         return choose_tier(self._stats_cache[1], self.planner).tier
 
-    def _default_search(self, snapshot: EpochSnapshot, Q: torch.Tensor):
+    def _default_search(self, snapshot: EpochSnapshot, Q: torch.Tensor,
+                        rows: int):
         tier = self._last_tier = self._plan_tier(snapshot)
         self.metrics.counter(f"tier_{tier}_batches").inc()
         if tier == "exact":
@@ -163,9 +165,11 @@ class MicroBatcher:
                                           self.k)
             return labels, dists
         if snapshot.has_backup:
+            # the snapshot's index is the one its backup's hits are held
+            # live against: both come from the same epoch
             return batch_dual_search(self.params, snapshot.index,
                                      self.backup_params, snapshot.backup, Q,
-                                     self.k, self.ef)
+                                     self.k, self.ef, rows=rows)
         labels, _, dists = batch_knn(self.params, snapshot.index, Q, self.k,
                                      self.ef)
         return labels, dists
@@ -197,7 +201,8 @@ class MicroBatcher:
             t0 = time.perf_counter()
             with spans.span("batcher.batch", rows=take, bucket=b) as sp:
                 labels, dists = self._search_fn(
-                    snapshot, torch.from_numpy(Q).to(snapshot.index.device))
+                    snapshot, torch.from_numpy(Q).to(snapshot.index.device),
+                    take)
                 labels = labels.cpu().numpy()   # waits for the device
                 dists = dists.cpu().numpy()
                 sp.set(tier=self._last_tier)

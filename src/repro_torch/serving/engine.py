@@ -44,9 +44,10 @@ import dataclasses
 import time
 
 from ..core import spans
+from ..core.backup import empty_backup
 from ..core.distributed import (ShardedIndex, shard_index,
                                 sharded_batch_knn, sharded_update)
-from ..core.index import HNSWIndex, HNSWParams, empty_index
+from ..core.index import HNSWIndex, HNSWParams
 from ..core.maintenance import (MaintenancePolicy, index_health,
                                 run_maintenance)
 from ..core.reach import count_unreachable
@@ -125,9 +126,9 @@ class ServingEngine:
 
         backup = None
         if use_backup:
-            backup = empty_index(backup_params or params, backup_capacity,
-                                 self.dim, 1, dtype=index.vectors.dtype,
-                                 device=index.device)
+            backup = empty_backup(backup_params or params, backup_capacity,
+                                  self.dim, dtype=index.vectors.dtype,
+                                  device=index.device)
         self.store = SnapshotStore(index, backup)
         # sharded mode pins the graph tier, as the reference does
         self.batcher = MicroBatcher(
@@ -142,7 +143,7 @@ class ServingEngine:
             apply_fn=self._sharded_apply if sharded else None)
 
     # -- sharded routing ----------------------------------------------------
-    def _sharded_search(self, snapshot: EpochSnapshot, Q):
+    def _sharded_search(self, snapshot: EpochSnapshot, Q, rows: int):
         return sharded_batch_knn(self.params, snapshot.index, Q, self.k,
                                  self.ef)
 

@@ -205,15 +205,18 @@ class UpdateScheduler:
 
         Returns the fresh backup index (a new index; ``index`` is only
         read), or None when not due. Called from the engine's maintenance
-        cycle so it never blocks a write submission.
+        cycle so it never blocks a write submission. The rebuild is the
+        span ``backup.rebuild`` (``capacity``; ``points``, the backup's
+        count), with ``backup.sweep`` inside it.
         """
         if not self.rebuild_due:
             return None
         t0 = time.perf_counter()
-        backup = rebuild_backup(self.backup_params, index,
-                                self.backup_capacity, self._rebuilds + 1)
-        if backup.device.type == "cuda":
-            torch.cuda.synchronize(backup.device)
+        with spans.span("backup.rebuild",
+                        capacity=self.backup_capacity) as sp:
+            backup = rebuild_backup(self.backup_params, index,
+                                    self.backup_capacity, self._rebuilds + 1)
+            sp.set(points=int(backup.count))    # waits for the device
         # one drain can cross several tau thresholds — catch the counter up
         # so idle pumps don't rebuild the identical index again
         self._rebuilds = self._ru_ops // self.tau
